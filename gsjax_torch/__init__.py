@@ -1,0 +1,29 @@
+"""gsjax_torch — the PyTorch / CUDA port of gsjax for NVIDIA Hopper.
+
+The serving path of gsjax: project + SH → home layout with fat-splat
+splitting (CUDA kernel A) → pair expansion with the exact ellipse cull
+(CUDA kernel B) and one stable (tile, depth, pid) sort → front-to-back
+stream blend (CUDA kernel C). On a CUDA device the kernels run (built
+from gsjax_torch/csrc at first use); on the CPU their plain PyTorch
+versions do. Forward only for now. Never imports jax or gsjax.
+
+  Gaussians, Camera, RenderConfig, render, OrbitCamera,
+  render_trajectory, render_orbit
+"""
+
+from gsjax_torch.camera.orbit import OrbitCamera
+from gsjax_torch.core.camera import Camera
+from gsjax_torch.core.config import RenderConfig
+from gsjax_torch.core.gaussians import Gaussians
+from gsjax_torch.render.pipeline import render
+from gsjax_torch.viewer import render_orbit, render_trajectory
+
+__all__ = [
+    "Gaussians",
+    "Camera",
+    "RenderConfig",
+    "render",
+    "OrbitCamera",
+    "render_trajectory",
+    "render_orbit",
+]

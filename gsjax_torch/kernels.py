@@ -1,0 +1,128 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources under gsjax_torch/csrc/ compile with nvcc into ONE shared
+library with a plain C interface, loaded with ctypes (no PyTorch headers,
+so the build takes seconds). The build happens at first use, into
+gsjax_torch/_build/, under a file name that carries a hash of the sources
+and flags: an edited source rebuilds, an unchanged one loads the cached
+library.
+
+`-fmad=false` is load-bearing: the ellipse-cull quadratics of the repeat
+and expansion kernels must round exactly as their plain PyTorch versions
+do (an FMA-contracted `a·x·x + 2·b·x·y + c·y·y` flips borderline pairs),
+and the blend kernel's `fexp` must be the reference polynomial op for op.
+Never build with --use_fast_math.
+
+LAUNCHES counts, per kernel, the launches its wrapper made; a run zeroes
+it with reset_launches() and reads it afterwards to show which kernels
+the path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("repeat.cu", "expand.cu", "stream_fwd.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: (argtypes); each returns cudaGetLastError() as an int
+_SIGNATURES = {
+    # src18, fb, fbe, thr, nf, nc, fat_cap, tiles_x, tiles_y, span, ts,
+    # tail, keys, stream
+    "gsjax_repeat_fat_parents": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _P, _P, _P),
+    # cols, nh_pad, ty0, band_rows, tiles_x, ts, span, tile2d, pid2d, stream
+    "gsjax_expand_pairs": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # att, pid, starts, n_tiles, ty0, tiles_x, ts, chunk, k_slots,
+    # alpha_clamp, alpha_min, eps_T, out, stream
+    "gsjax_stream_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                             _F, _P, _P),
+}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = shutil.which("nvcc")
+    if cand is None and CUDA_HOME:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if cand is None or not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return cand
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(CSRC, name), "rb") as fh:
+            h.update(name.encode() + fh.read())
+    return os.path.join(BUILD_DIR, f"libgsjax_torch_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if the hashed library is missing; returns its
+    path. Writes to a temporary name first, so a concurrent or cut build
+    never leaves a half-written library under the final name."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path[:-3]}.tmp{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[os.path.join(CSRC, s) for s in SOURCES]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    os.replace(tmp, path)
+    return path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error (a refused launch
+    never runs, and synchronize() would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,428 @@
+"""Home-tile splat layout for the stream backend — the PyTorch counterpart
+of gsjax/render/homesort.py (forward only).
+
+The projected splats are re-laid out once per frame in (home tile, depth)
+order. A splat's home tile is the center of the 3×3-tile block of its
+footprint rect it is responsible for, so every pair's tile is one of 9
+fixed class offsets from its home. EXACT footprints (the default): a
+splat whose rect spans more than one block is split — one extra home row
+per additional block, a copy of the parent's projected attributes homed
+at that block's center and windowed to block ∩ rect; copy blocks the
+ellipse cannot reach at alpha_min are culled. Budget overflow
+(fat_max_blocks / fat_cap / fat_live_cap) is counted, never silent.
+LEGACY (footprint_clamp=True): home = the mean's tile.
+
+Kernel A (`repeat_fat_parents`, csrc/repeat.cu) replaces the TPU's
+gsjax/render/homesort.py::_repeat_kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gsjax_torch import kernels
+from gsjax_torch.core.camera import Camera
+from gsjax_torch.core.config import RenderConfig
+from gsjax_torch.render.common import depth_bits, tile_rect
+from gsjax_torch.render.project import ProjectedSplats
+
+PCOLS = 11  # mean2d(2) + depth(1) + conic(3) + radius(1) + rgb(3) + opacity(1)
+_RPT_STEP = 2048  # fat_cap granularity, kept from the reference
+_BIG = float(1 << 30)  # fb/fbe of the non-fat pad rows
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d float32 tensor on `like`'s device. Dividing by it is a true
+    division; dividing a CUDA tensor by a Python float multiplies by the
+    reciprocal instead, which rounds differently."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def cull_threshold(opacity: torch.Tensor, alpha_min: float) -> torch.Tensor:
+    """2·ln(max(op, α_min)/α_min) + 1e-3: the largest conic quadratic at
+    which the splat still reaches alpha_min (plus slack for fexp). One
+    torch computation shared by the kernels and their plain versions, so
+    a device `logf` can never flip a borderline cull between them."""
+    a = _f32(alpha_min, opacity)
+    return 2.0 * torch.log(torch.maximum(opacity, a) / a) + 1e-3
+
+
+def _block_qmin(mx, my, ca, cb, cc, wx0, wx1, wy0, wy1, ts: float):
+    """min of the conic quadratic over the window's pixel rect
+    [wx0·ts, wx1·ts − 1] × [wy0·ts, wy1·ts − 1] (the closed form of
+    binning's per-tile ellipse cull, at block granularity)."""
+    dxl = wx0.to(torch.float32) * ts - mx
+    dxr = wx1.to(torch.float32) * ts - 1.0 - mx
+    dyl = wy0.to(torch.float32) * ts - my
+    dyr = wy1.to(torch.float32) * ts - 1.0 - my
+    inside = (dxl <= 0) & (dxr >= 0) & (dyl <= 0) & (dyr >= 0)
+    neg_cb_rcc = -cb / cc
+    neg_cb_rca = -cb / ca
+
+    def edge_x(dx):
+        dy = torch.minimum(torch.maximum(neg_cb_rcc * dx, dyl), dyr)
+        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
+
+    def edge_y(dy):
+        dx = torch.minimum(torch.maximum(neg_cb_rca * dy, dxl), dxr)
+        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
+
+    qmin = torch.minimum(
+        torch.minimum(edge_x(dxl), edge_x(dxr)),
+        torch.minimum(edge_y(dyl), edge_y(dyr)),
+    )
+    return torch.where(inside, torch.zeros_like(qmin), qmin)
+
+
+# --------------------------------------------------------------------------
+# kernel A: fat-parent ragged repeat + per-copy block math
+# --------------------------------------------------------------------------
+
+
+def repeat_fat_parents_plain(src18, fb, fbe, n_copies, fat_cap: int,
+                             tiles_x: int, tiles_y: int, span: int, ts: int,
+                             alpha_min: float):
+    """Plain PyTorch version of kernel A (same contract as
+    repeat_fat_parents)."""
+    thr = cull_threshold(src18[:, 6], alpha_min)
+    nc = min(int(n_copies), fat_cap)
+    slot_i = torch.arange(fat_cap, dtype=torch.int32, device=src18.device)
+    slot = slot_i.to(torch.float32)
+    par = torch.searchsorted(fb, slot, right=True) - 1
+    parc = par.clamp(min=0)
+    has = (par >= 0) & (slot < fbe[parc])
+    a = torch.where(has[:, None], src18[parc], torch.zeros_like(src18[:1]))
+    th = torch.where(has, thr[parc], torch.zeros_like(slot))
+    col = lambda i: a[:, i]
+    toi = lambda i: a[:, i].to(torch.int32)
+
+    h = span // 2
+    b = (slot - col(0) + 1.0).to(torch.int32)  # block index 1..nb-1
+    gsbx = torch.clamp(toi(12), min=1)
+    bx = b % gsbx
+    by = b // gsbx
+    cwx0 = toi(13) + span * bx
+    cwx1 = torch.minimum(cwx0 + span, toi(15))
+    cwy0 = toi(14) + span * by
+    cwy1 = torch.minimum(cwy0 + span, toi(16))
+    chx = torch.clamp(cwx0 + h, max=tiles_x - 1)
+    chy = torch.clamp(cwy0 + h, max=tiles_y - 1)
+    qmin = _block_qmin(col(1), col(2), col(3), col(4), col(5),
+                       cwx0, cwx1, cwy0, cwy1, float(ts))
+    ok = (slot_i < nc) & (qmin <= th)
+    hk = torch.where(ok, (chy * tiles_x + chx).to(torch.float32),
+                     _f32(tiles_x * tiles_y, a))
+    dep = torch.where(ok, col(7), _f32(1.0, a))
+    cw = [torch.clamp(c.to(torch.float32), 0.0, 16383.0)
+          for c in (cwx0, cwx1, cwy0, cwy1)]
+    zero = torch.zeros_like(slot)
+    keys = torch.stack([hk, dep, cw[0] * 16384.0 + cw[1],
+                        cw[2] * 16384.0 + cw[3], zero, zero, zero, zero])
+    tail = torch.stack(
+        [col(1), col(2), col(7), col(3), col(4), col(5), col(8),
+         col(9), col(10), col(11), col(6), zero], dim=1,
+    )
+    return tail, keys
+
+
+def repeat_fat_parents(src18, fb, fbe, n_copies, fat_cap: int, tiles_x: int,
+                       tiles_y: int, span: int, ts: int, alpha_min: float):
+    """Ragged-repeat the fat parents' rows over the copy-slot axis, with
+    the per-copy block decode, window, home tile and exact block ellipse
+    cull fused in.
+
+    src18 [NF, 18] f32: fat-compacted parent rows (col 0 = base, the first
+    copy slot; 1-2 mean2d; 3-5 conic; 6 opacity; 7 depth; 8 radius; 9-11
+    rgb; 12 blocks per row; 13-16 rect x0, y0, x1, y1; 17 n_ex); fb / fbe
+    [NF] f32: base / base + n_ex, 2^30 on non-fat pad rows; n_copies: the
+    live copy count. Returns
+      tail_tab [fat_cap, 12] f32 — parent attributes (mean2, depth, conic,
+        radius, rgb, opacity, 0); zero where no parent covers the slot;
+      keys [8, fat_cap] f32 — row 0 home key (tiles_x·tiles_y sentinel
+        when dead or culled), row 1 depth (1.0 when dead or culled), rows
+        2/3 the copy window packed base 16384 (wx0·16384 + wx1,
+        wy0·16384 + wy1), rows 4-7 zero.
+
+    Kernel A, csrc/repeat.cu; replaces the TPU kernel
+    gsjax/render/homesort.py::_repeat_kernel. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (there is no fallback)."""
+    if src18.device.type == "cpu":
+        return repeat_fat_parents_plain(src18, fb, fbe, n_copies, fat_cap,
+                                        tiles_x, tiles_y, span, ts, alpha_min)
+    if src18.device.type != "cuda":
+        raise ValueError(f"repeat_fat_parents: unsupported device {src18.device}")
+    src18 = src18.to(torch.float32).contiguous()
+    fb = fb.to(torch.float32).contiguous()
+    fbe = fbe.to(torch.float32).contiguous()
+    nf = src18.shape[0]
+    if src18.shape != (nf, 18) or fb.shape != (nf,) or fbe.shape != (nf,):
+        raise ValueError("repeat_fat_parents: expected src18 [NF, 18], fb/fbe [NF]")
+    thr = cull_threshold(src18[:, 6], alpha_min).contiguous()
+    nc = min(int(n_copies), fat_cap)
+    tail = torch.empty((fat_cap, 12), dtype=torch.float32, device=src18.device)
+    keys = torch.empty((8, fat_cap), dtype=torch.float32, device=src18.device)
+    lib = kernels.lib()
+    err = lib.gsjax_repeat_fat_parents(
+        src18.data_ptr(), fb.data_ptr(), fbe.data_ptr(), thr.data_ptr(),
+        nf, nc, fat_cap, tiles_x, tiles_y, span, ts,
+        tail.data_ptr(), keys.data_ptr(), kernels.stream_ptr(src18),
+    )
+    kernels.check(err, "repeat_fat_parents")
+    kernels.LAUNCHES["repeat"] += 1
+    return tail, keys
+
+
+# --------------------------------------------------------------------------
+# layout
+# --------------------------------------------------------------------------
+
+
+def home_gather(x, tail_x, perm):
+    """concat(x [N, C], tail_x [F, C])[perm]. Forward only: the VJP that
+    sums copy-row gradients onto their parents comes with training."""
+    return torch.cat([x, tail_x])[perm]
+
+
+@dataclasses.dataclass(frozen=True)
+class HomeLayout:
+    """perm [NH] i64: home row i holds pre-sort entry perm[i] (entries
+    ≥ N are fat-splat copies); seg_starts [T+2] i32: home rows of tile t
+    are [seg_starts[t], seg_starts[t+1]) (segment T holds culled rows);
+    home_x / home_y [NH] i32; win [NH, 4] i32 (wx0, wx1, wy0, wy1): the
+    row's tile window (block ∩ rect in exact mode, zeros in legacy mode);
+    n_fat_overflow: footprint blocks / rows lost to the fat budgets."""
+
+    perm: torch.Tensor
+    seg_starts: torch.Tensor
+    home_x: torch.Tensor
+    home_y: torch.Tensor
+    win: torch.Tensor
+    n_valid: torch.Tensor
+    n_fat_overflow: torch.Tensor
+    n_copies: torch.Tensor
+    tiles_x: int
+    tiles_y: int
+
+
+def resolve_fat_caps(n: int, cfg: RenderConfig):
+    """Fat-split budgets (fat_cap, live_cap): fat_cap bounds the copy
+    enumeration (pre block-cull), live_cap the copy rows kept in the
+    sorted layout. None-configured caps scale with the scene."""
+    fat_cap = cfg.fat_cap
+    if fat_cap is None:
+        fat_cap = min(4_194_304, max(1024, 2 * n))
+    fat_cap = -(-fat_cap // _RPT_STEP) * _RPT_STEP
+    if fat_cap >= 1 << 24:
+        # slot indices ride the repeat kernel as f32 values
+        raise ValueError(
+            f"fat_cap={fat_cap} >= 2^24 breaks the f32-exactness of the "
+            "copy-slot columns; use a smaller cap (overflow is counted)"
+        )
+    live_cap = cfg.fat_live_cap
+    if live_cap is None:
+        live_cap = min(2_097_152, max(1024, n + n // 4))
+    return fat_cap, min(live_cap, fat_cap)
+
+
+def _legacy_home(p, tiles_x, tiles_y, cfg):
+    """Home = the mean's tile, clipped; splats more than 2 tiles outside
+    the viewport go to the sentinel segment."""
+    mx, my = p.mean2d[:, 0], p.mean2d[:, 1]
+    ts = cfg.tile_size
+    htx = torch.clamp(torch.floor(mx / ts).to(torch.int32), 0, tiles_x - 1)
+    hty = torch.clamp(torch.floor(my / ts).to(torch.int32), 0, tiles_y - 1)
+    on = (
+        p.valid
+        & (mx >= -ts * 2)
+        & (mx < tiles_x * ts + ts * 2)
+        & (my >= -ts * 2)
+        & (my < tiles_y * ts + ts * 2)
+    )
+    return htx, hty, on
+
+
+def _footprint_blocks(p, tiles_x, tiles_y, cfg):
+    """Each splat's exact tile rect cut into span×span-tile blocks:
+    (on, x0, y0, x1, y1, sbx, nb_full, n_blocks, n_ex); n_ex = the copy
+    rows a fat splat needs beyond its primary (0 for thin / culled)."""
+    span = cfg.tile_span
+    x0, y0, x1, y1 = tile_rect(p.mean2d.detach(), p.radius.detach(),
+                               tiles_x, tiles_y, cfg.tile_size)
+    on = p.valid & (x1 > x0) & (y1 > y0)
+    sbx = -(-(x1 - x0) // span)  # blocks per axis (≥ 1 when on)
+    sby = -(-(y1 - y0) // span)
+    nb_full = torch.where(on, sbx * sby, torch.ones_like(sbx))
+    n_blocks = torch.clamp(nb_full, max=cfg.fat_max_blocks)
+    n_ex = torch.where(on, n_blocks - 1, torch.zeros_like(n_blocks))
+    return on, x0, y0, x1, y1, sbx, nb_full, n_blocks, n_ex
+
+
+def fat_parent_table(p, x0, y0, x1, y1, sbx, n_ex):
+    """Fat-compacted parent rows for kernel A: (src18 [N, 18], fb [N],
+    fbe [N]). Fat splats (n_ex > 0) come first in index order; the rest
+    are zero rows with fb = fbe = 2^30."""
+    n = p.depth.shape[0]
+    i2f = lambda v: v.to(torch.float32)
+    base = torch.cumsum(n_ex, 0) - n_ex
+    src18 = torch.cat(
+        [
+            i2f(base)[:, None], p.mean2d, p.conic, p.opacity[:, None],
+            p.depth[:, None], p.radius[:, None], p.rgb,
+            i2f(torch.stack([sbx, x0, y0, x1, y1], dim=-1)),
+            i2f(n_ex)[:, None],
+        ],
+        dim=-1,
+    ).detach()
+    fat_idx = torch.nonzero(n_ex > 0).squeeze(1)
+    nf = fat_idx.shape[0]
+    g18 = torch.zeros_like(src18)
+    g18[:nf] = src18[fat_idx]
+    fb = torch.full((n,), _BIG, dtype=torch.float32, device=src18.device)
+    fbe = fb.clone()
+    fb[:nf] = g18[:nf, 0]
+    fbe[:nf] = g18[:nf, 0] + g18[:nf, 17]
+    return g18, fb, fbe
+
+
+def fat_repeat_inputs(p, tiles_x: int, tiles_y: int, cfg: RenderConfig):
+    """Kernel A's inputs as build_home_layout forms them for the
+    projected splats `p`: (src18, fb, fbe, n_copies)."""
+    _, x0, y0, x1, y1, sbx, _, _, n_ex = _footprint_blocks(p, tiles_x, tiles_y, cfg)
+    g18, fb, fbe = fat_parent_table(p, x0, y0, x1, y1, sbx, n_ex)
+    return g18, fb, fbe, n_ex.sum(dtype=torch.int64)
+
+
+def _exact_rows(p, tiles_x, tiles_y, cfg):
+    """Exact-mode key material for the N primaries and the fat_cap copy
+    slots: (home_key, depth, wpa, wpb, on_ext, tail_tab, n_ovf, n_copies,
+    live_cap)."""
+    if cfg.fat_max_blocks >= 1024:
+        # the training VJP's block-bounded segment reduction needs every
+        # parent's copy run shorter than 1024 rows (reference behaviour)
+        raise ValueError(f"fat_max_blocks={cfg.fat_max_blocks} must be < 1024")
+    n = p.depth.shape[0]
+    span = cfg.tile_span
+    h = span // 2
+    t_sent = tiles_x * tiles_y
+    on, x0, y0, x1, y1, sbx, nb_full, n_blocks, n_ex = _footprint_blocks(
+        p, tiles_x, tiles_y, cfg
+    )
+    # primary row = block (0, 0); home = its center, clipped into the image
+    phx = torch.clamp(x0 + h, max=tiles_x - 1)
+    phy = torch.clamp(y0 + h, max=tiles_y - 1)
+    pwa = x0 * 16384 + torch.minimum(x0 + span, x1)
+    pwb = y0 * 16384 + torch.minimum(y0 + span, y1)
+
+    fat_cap, live_cap = resolve_fat_caps(n, cfg)
+    n_copies = n_ex.sum(dtype=torch.int64)
+    g18, fb, fbe = fat_parent_table(p, x0, y0, x1, y1, sbx, n_ex)
+    tail_tab, tkeys = repeat_fat_parents(
+        g18, fb, fbe, n_copies, fat_cap, tiles_x, tiles_y, span,
+        cfg.tile_size, cfg.alpha_min,
+    )
+    hk_tail = tkeys[0].to(torch.int32)
+    tail_ok = hk_tail < t_sent  # dead / culled rows carry the sentinel
+    home_key = torch.cat(
+        [torch.where(on, phy * tiles_x + phx, torch.full_like(phx, t_sent)),
+         hk_tail]
+    )
+    depth_all = torch.cat([p.depth.detach(), tkeys[1]])
+    wpa = torch.cat([pwa, tkeys[2].to(torch.int32)])
+    wpb = torch.cat([pwb, tkeys[3].to(torch.int32)])
+    n_ovf = (
+        torch.where(on, nb_full - n_blocks, torch.zeros_like(nb_full)).sum()
+        + torch.clamp(n_copies - fat_cap, min=0)
+    )
+    return (home_key, depth_all, wpa, wpb, torch.cat([on, tail_ok]),
+            tail_tab, n_ovf, n_copies, live_cap)
+
+
+def sort_perm(key_hi: torch.Tensor, dkey: torch.Tensor) -> torch.Tensor:
+    """Permutation sorting rows by (key_hi, dkey, row index), all
+    ascending: one stable sort of an int64 key. dkey is biased by 2^31 so
+    the signed i32 order survives the packing (a culled row's depth may
+    be negative)."""
+    key = (key_hi.to(torch.int64) << 32) | (dkey.to(torch.int64) + (1 << 31))
+    return torch.sort(key, stable=True).indices
+
+
+def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig):
+    """Sort the PROJECTED scene by (home tile, depth), splitting fat
+    splats into per-block copies in exact mode. Returns
+    (p_home: ProjectedSplats [NH], HomeLayout); NH = N + live_cap (exact)
+    or N (legacy)."""
+    n = p.depth.shape[0]
+    dev = p.depth.device
+    tiles_x = cfg.tiles_x(cam.width)
+    tiles_y = cfg.tiles_y(cam.height)
+    if max(tiles_x, tiles_y) > 1023:
+        # windows travel packed base 16384 and tile coordinates as f32
+        # values: both exact only below 1024 tiles per axis
+        raise ValueError(
+            f"{tiles_x}x{tiles_y} tiles exceeds the 1023-per-axis bound "
+            "of the packed window payloads; increase tile_size"
+        )
+    t_sent = tiles_x * tiles_y
+
+    if cfg.footprint_clamp:
+        htx, hty, on = _legacy_home(p, tiles_x, tiles_y, cfg)
+        home_key = torch.where(on, hty * tiles_x + htx, torch.full_like(htx, t_sent))
+        depth_all = torch.where(p.valid, p.depth.detach(), _f32(1.0, p.depth))
+        wpa = torch.zeros(n, dtype=torch.int32, device=dev)
+        wpb = wpa
+        on_ext = on
+        tail_tab = torch.zeros((0, PCOLS + 1), dtype=torch.float32, device=dev)
+        n_ovf = torch.zeros((), dtype=torch.int64, device=dev)
+        n_copies = torch.zeros((), dtype=torch.int64, device=dev)
+        nh = n
+    else:
+        (home_key, depth_all, wpa, wpb, on_ext, tail_tab, n_ovf, n_copies,
+         live_cap) = _exact_rows(p, tiles_x, tiles_y, cfg)
+        nh = n + live_cap
+
+    perm_full = sort_perm(home_key, depth_bits(depth_all))
+    perm = perm_full[:nh]
+    home_sorted = home_key[perm]
+    n_live = on_ext.sum()
+    n_ovf = n_ovf + torch.clamp(n_live - nh, min=0)
+    seg_starts = torch.searchsorted(
+        home_sorted,
+        torch.arange(t_sent + 2, dtype=torch.int32, device=dev),
+        side="left",
+    ).to(torch.int32)
+
+    packed_n = torch.cat(
+        [p.mean2d, p.depth[:, None], p.conic, p.radius[:, None], p.rgb,
+         p.opacity[:, None], torch.zeros_like(p.depth)[:, None]],
+        dim=-1,
+    )  # [N, 12]; the tail rows carry the same column order
+    ph = home_gather(packed_n, tail_tab, perm)
+    wpa_h, wpb_h = wpa[perm], wpb[perm]
+    win = torch.stack(
+        [wpa_h // 16384, wpa_h % 16384, wpb_h // 16384, wpb_h % 16384], dim=-1
+    ).to(torch.int32)
+    hs = torch.clamp(home_sorted, max=t_sent - 1)
+    p_home = ProjectedSplats(
+        mean2d=ph[:, 0:2],
+        depth=ph[:, 2],
+        conic=ph[:, 3:6],
+        radius=ph[:, 6],
+        rgb=ph[:, 7:10],
+        opacity=ph[:, 10],
+        valid=home_sorted < t_sent,  # liveness = the home-key sentinel
+    )
+    layout = HomeLayout(
+        perm=perm,
+        seg_starts=seg_starts,
+        home_x=(hs % tiles_x).to(torch.int32),
+        home_y=(hs // tiles_x).to(torch.int32),
+        win=win,
+        n_valid=n_live.to(torch.int32),
+        n_fat_overflow=n_ovf.to(torch.int32),
+        n_copies=n_copies.to(torch.int32),
+        tiles_x=tiles_x,
+        tiles_y=tiles_y,
+    )
+    return p_home, layout

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive gsjax_torch's serving path once on one CUDA GPU and check it.
+"""Drive gsjax_torch's serving and training paths once on one CUDA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -23,9 +24,29 @@ Phases (any failure exits non-zero; there is no CPU path):
                have launched once per frame; frames finite; every
                overflow counter 0; view 0's mean(img²) = 0.41342 ± 0.1%
                (the reference's black-target loss of this view);
-  8. timing  — median ms/frame and the per-stage split.
-Prints the kernels' JSON line, then the card's name and power limit, then
-the result line {"ok": true, "device": {...}} last.
+  8. timing  — median ms/frame and the per-stage split;
+  9. kernel D — on view 0 at the path's shapes, with the cotangents of a
+               real loss (the perturbed scene against the clean scene's
+               render), the backward kernel against its plain version:
+               per attribute column p99.9 |Δ|/peak ≤ 1e-4 and max ≤ 1e-1
+               (in-chunk products round differently, so a pixel's include
+               set may flip near eps), two launches bit-equal; times of
+               both; then the small scenes of phase 6 with a background
+               (so ct_T ≠ 0): every field's gradient on the card against
+               the CPU's plain path;
+ 10. train   — gsjax_torch.train on the bonsai 1080p orbit: perturb(g)
+               trained toward the port's renders of the clean scene, one
+               fwd + bwd + Adam(1e-3) step at each of views 0-3, then 8 at
+               view 0; zero the launch counters before, read them after:
+               kernels A-D once per step; overflow 0, gradients finite,
+               parameters changed, view 0's first loss within 5% of
+               0.00031 (bench.py's loss0 for this perturbation), the loss
+               at view 0 falling; median ms/step, its split (forward,
+               backward, optimizer) and peak device memory.
+Prints the kernels' JSON line (A-D, each with its time, its plain
+version's, its bound and its launches on the training path), then the
+card's name and power limit, then the result line {"ok": true, "device":
+{...}} last.
 """
 
 from __future__ import annotations
@@ -42,10 +63,23 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 
 N_SPLATS = 1_200_000
 WIDTH, HEIGHT = 1920, 1080
-FAT_CAP, LIVE_CAP = 2_342_912, 1_617_920
 BLACK_LOSS0 = 0.41342  # mean(img²) of orbit view 0 in the reference
+TRAIN_LOSS0 = 0.00031  # bench.py's loss0 for perturb(g) at view 0 (BENCH_r05.json)
 SERVE_VIEWS = 4
+TRAIN_VIEWS, FIXED_STEPS = 4, 8
 DEVICE = "cuda:0"
+
+# the card's peaks (H100 SXM data sheet) and the work per unit, counted
+# from the kernels' sources: every +, ×, compare, min / max, floor and
+# conversion one operation, one pass over the work (recomputation, such
+# as kernel D's three passes, is not work the function needs). A and B
+# are approximate (their bound is the bytes, by 10x or more)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_PER_SLOT_A = 130  # ~20-step binary search + block decode + the cull
+OPS_PER_CANDIDATE_B = 60  # window tests + the four-edge quadratic minimum
+OPS_PER_PAIR_PIXEL_C = 45  # quadratic 9, fexp 20, α 2, tests 2, C 3, rgb 6, …
+OPS_PER_PAIR_PIXEL_D = 85  # C's 39 up to the transmittance + v, U, dα, 9 grads, 9 sums
 
 
 RAW_FIELDS = ("means", "log_scales", "quats", "sh", "opacity_logits")
@@ -78,7 +112,8 @@ def small_scene(rng, n, spread, z_range, log_scale_boost=0.0):
     sh = rng.normal(size=(n, 4, 3)) * 0.3
     sh[:, 0, :] = rng.uniform(-0.5, 1.5, (n, 3))
     return Gaussians.from_activated(means=means, scales=scales, quats=quats,
-                                    opacities=rng.uniform(0.3, 0.95, n), sh=sh)
+                                    opacities=rng.uniform(0.3, 0.95, n), sh=sh,
+                                    device="cpu")
 
 
 def fail(msg: str) -> None:
@@ -91,17 +126,27 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def orbit_cameras(views: int, width: int, height: int, sweep_deg: float = 30.0):
-    """bench.py::orbit_cameras with the port's OrbitCamera."""
-    import numpy as np
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time for the work on the card, the
+    larger of bytes over the memory rate and operations over the fp32
+    rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
-    from gsjax_torch import OrbitCamera
 
-    r = float(np.hypot(4.0, 0.6))
-    beta = float(np.arcsin(-0.6 / r))
-    oc = OrbitCamera(alpha=float(np.pi), beta=beta, radius=r, target=(0.0, 0.0, 0.0))
-    return oc.trajectory(views, alpha_end=float(np.deg2rad(sweep_deg)),
-                         fx=1600.0, fy=1600.0, width=width, height=height)
+def replayed_pair_pixels(out, starts, cfg) -> int:
+    """Pair-pixels of the chunks the blend ran (and the backward replays):
+    Σ_tiles ts² · min(pairs, n_done · chunk)."""
+    import torch
+
+    counts = (starts[1:] - starts[:-1]).to(torch.int64)
+    n_done = out[:, 5, 0].to(torch.int64)
+    return int(torch.minimum(counts, n_done * cfg.chunk).sum()) * cfg.tile_size ** 2
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -166,9 +211,11 @@ def main() -> int:
 
     import gsjax_torch as gt
     from gsjax_torch import kernels
+    from gsjax_torch.bench.run import FAT_CAP, LIVE_CAP, orbit_cameras, perturb
     from gsjax_torch.bench.synth import bonsai_like
     from gsjax_torch.render import binning, homesort, stream
-    from gsjax_torch.render.composite import att_table, clipped_pair_stream
+    from gsjax_torch.render.composite import (assemble_band, att_table,
+                                              clipped_pair_stream)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain blend's einsum: f32
     torch.backends.cudnn.allow_tf32 = False
@@ -191,7 +238,7 @@ def main() -> int:
     # 3-5. scene, cameras, config -------------------------------------------
     t0 = time.perf_counter()
     g = bonsai_like(n=N_SPLATS, seed=0, sh_degree=0, device=dev)
-    cams = orbit_cameras(30, WIDTH, HEIGHT)
+    cams = orbit_cameras(30, WIDTH, HEIGHT, device=dev)
     cfg = gt.RenderConfig(backend="stream", chunk=128, fat_cap=FAT_CAP,
                           fat_live_cap=LIVE_CAP)
     torch.cuda.synchronize()
@@ -215,7 +262,9 @@ def main() -> int:
         check(torch.equal(tail_k, tail_p) and torch.equal(keys_k, keys_p),
               f"kernel A (repeat) differs from its plain version: {err_a}")
         n_live_copies = int((keys_k[0] < tiles_x * tiles_y).sum())
-        print(f"# A repeat: fat parents {int((fb < 2**30).sum())}, copy slots "
+        nf = int((fb < 2**30).sum())
+        bound_a = bound(nf * 21 * 4 + nbytes(tail_k, keys_k), OPS_PER_SLOT_A * FAT_CAP)
+        print(f"# A repeat: fat parents {nf}, copy slots "
               f"{int(n_copies)} of {FAT_CAP}, live copies {n_live_copies} of "
               f"{LIVE_CAP}: bit-equal")
         results.append(dict(
@@ -225,6 +274,7 @@ def main() -> int:
             max_abs_err=err_a,
             ms=cuda_ms(lambda: homesort.repeat_fat_parents(*a_args), 20),
             plain_ms=cuda_ms(lambda: homesort.repeat_fat_parents_plain(*a_args), 5),
+            bound_ms=bound_a[0], bound_by=bound_a[1], library_ms=None,
         ))
 
         cols = binning.expand_cols(ph, layout, cfg)
@@ -234,6 +284,8 @@ def main() -> int:
         err_b = float((tile_k.to(torch.int64) - tile_p).abs().max())
         check(torch.equal(tile_k, tile_p) and torch.equal(pid_k, pid_p),
               f"kernel B (expand) differs from its plain version: {err_b}")
+        bound_b = bound(nbytes(cols, tile_k, pid_k),
+                        OPS_PER_CANDIDATE_B * tile_k.numel())
         print(f"# B expand: home rows {ph.depth.shape[0]} (padded "
               f"{cols.shape[1]}), live pairs "
               f"{int((tile_k != binning.INVALID_TILE).sum())}: bit-equal")
@@ -244,6 +296,7 @@ def main() -> int:
             max_abs_err=err_b,
             ms=cuda_ms(lambda: binning.expand_pairs(*b_args), 20),
             plain_ms=cuda_ms(lambda: binning.expand_pairs_plain(*b_args), 5),
+            bound_ms=bound_b[0], bound_by=bound_b[1], library_ms=None,
         ))
 
         att = att_table(ph).contiguous()
@@ -257,13 +310,16 @@ def main() -> int:
         n_done_diff = int((out_k[:, 5, 0] != out_p[:, 5, 0]).sum())
         c_diff = float((out_k[:, 4] - out_p[:, 4]).abs().max())
         counts = starts[1:] - starts[:-1]
+        pp_c = replayed_pair_pixels(out_k, starts, cfg)
+        bound_c = bound(nbytes(att, pid, starts, out_k), OPS_PER_PAIR_PIXEL_C * pp_c)
         print(f"# C stream blend: {bins.pid_sorted.shape[0]} pairs over "
               f"{tiles_x * tiles_y} tiles (max {int(counts.max())} per tile, "
               f"{int((counts == 0).sum())} empty); |img, T_act| diff p99.9 "
               f"{p999:.3e} max {err_c:.3e}; C max diff {c_diff:.3e}; n_done "
               f"differs on {n_done_diff} tiles; mean chunks run "
               f"{float(out_k[:, 5, 0].mean()):.2f} of "
-              f"{float((-(-counts // cfg.chunk)).float().mean()):.2f}")
+              f"{float((-(-counts // cfg.chunk)).float().mean()):.2f}; "
+              f"{pp_c} pair-pixels run")
         check(p999 <= 2e-5, f"kernel C: p99.9 |diff| {p999} > 2e-5")
         check(err_c <= 5e-3, f"kernel C: max |diff| {err_c} > 5e-3")
         check(n_done_diff <= max(8, tiles_x * tiles_y // 1000),
@@ -275,6 +331,7 @@ def main() -> int:
             max_abs_err=err_c,
             ms=cuda_ms(lambda: stream.stream_forward(*c_args), 20),
             plain_ms=cuda_ms(lambda: stream.stream_forward_plain(*c_args), 2),
+            bound_ms=bound_c[0], bound_by=bound_c[1], library_ms=None,
         ))
         del src18, fb, fbe, tail_k, tail_p, keys_k, keys_p, cols
         del tile_k, tile_p, pid_k, pid_p, out_k, out_p, d, p, ph, layout, bins
@@ -287,7 +344,7 @@ def main() -> int:
             gg = gt.Gaussians.from_numpy(
                 *(getattr(gc, f).detach().numpy() for f in RAW_FIELDS), device=dev
             )
-            cam = gt.Camera.create(fx=80.0, fy=80.0, width=w, height=h)
+            cam = gt.Camera.create(fx=80.0, fy=80.0, width=w, height=h, device="cpu")
             cfg_e = gt.RenderConfig(backend="stream", chunk=32, **cfg_kw)
             img_c, aux_c = gt.render(gc, cam, cfg_e, return_aux=True)
             img_g, aux_g = gt.render(gg, cam, cfg_e, return_aux=True)
@@ -316,8 +373,9 @@ def main() -> int:
           f"({serve_s * 1e3 / SERVE_VIEWS:.1f} ms/frame incl. device-to-host "
           f"copy); launches {launches}")
     for name, n in launches.items():
-        check(n == SERVE_VIEWS, f"kernel {name} launched {n} times over "
-              f"{SERVE_VIEWS} frames (want one per frame)")
+        want = 0 if name == "stream_bwd" else SERVE_VIEWS  # serving takes no gradient
+        check(n == want, f"kernel {name} launched {n} times over "
+              f"{SERVE_VIEWS} frames (want {want})")
     check(frames.shape == (SERVE_VIEWS, HEIGHT, WIDTH, 3), f"frames {frames.shape}")
     check(bool(np.isfinite(frames).all()), "non-finite pixels")
     loss0 = float(np.mean(frames[0].astype(np.float64) ** 2))
@@ -329,10 +387,6 @@ def main() -> int:
     from gsjax_torch.utils.image import write_png
 
     write_png(os.path.join(OUT_DIR, "view0.png"), frames[0])
-    for r in results:
-        r["launches"] = launches[{"repeat_fat_parents": "repeat",
-                                  "expand_pairs": "expand",
-                                  "stream_forward": "stream_fwd"}[r["name"]]]
 
     # 8. timing ------------------------------------------------------------
     frame_ms, stages = [], {}
@@ -362,13 +416,177 @@ def main() -> int:
           f"(render() with synchronize); stage split (median ms) {split}; "
           f"peak device memory {peak_gb:.2f} GiB; overflow counters 0; "
           f"pairs view 0 {int(aux0['n_pairs'])}")
+
+    # 9. kernel D vs its plain version on view 0 ----------------------------
+    # the cotangents of a real loss: the perturbed scene against the clean
+    # scene's render of the view
+    cam0 = cams[0].to(dev)
+    g_train = perturb(g)
+    with torch.no_grad():
+        target0 = gt.render(g, cam0, cfg)
+        _, _, _, (p, ph, layout, bins) = staged_render(g_train, cam0, cfg)
+        att = att_table(ph).contiguous()
+        pid, starts, _ = clipped_pair_stream(bins, cfg)
+        out = stream.stream_forward(att, pid, starts, 0, tiles_x, cfg)
+    img_t = out[:, 0:3].transpose(1, 2).contiguous().requires_grad_()
+    T_t = out[:, 3].contiguous().requires_grad_()
+    img, _ = assemble_band(img_t, T_t, bins, cfg)
+    loss = torch.mean((img[:HEIGHT, :WIDTH] - target0) ** 2)
+    ct_img, ct_T = torch.autograd.grad(loss, [img_t, T_t])
+    d_args = (att, pid, starts, out, ct_img, ct_T, 0, tiles_x, cfg)
+    with torch.no_grad():
+        dk = stream.stream_backward(*d_args)
+        dk2 = stream.stream_backward(*d_args)
+        dp = stream.stream_backward_plain(*d_args)
+        torch.cuda.synchronize()
+        check(torch.equal(dk, dk2), "kernel D: two launches differ (not deterministic)")
+        diff = (dk - dp).abs()
+        peak = dp.abs().amax(dim=0).clamp(min=1e-30)
+        # the home rows some replayed pair reached (the rest are 0 in both)
+        rel = (diff / peak)[(dp != 0).any(dim=1) | (dk != 0).any(dim=1)]
+        p999 = torch.stack([torch.quantile(rel[:, c], 0.999) for c in range(9)])
+        err_d = float(diff.max())
+        names = ("mx", "my", "ca", "cb", "cc", "r", "g", "b", "op")
+        print(f"# D stream backward: loss {float(loss):.6f}; per column "
+              f"p99.9 |Δ|/peak {dict(zip(names, [f'{x:.2e}' for x in p999.tolist()]))}, "
+              f"max {dict(zip(names, [f'{x:.2e}' for x in rel.amax(dim=0).tolist()]))}; "
+              f"max |Δ| {err_d:.3e} over {rel.shape[0]} home rows with a "
+              f"gradient; two launches bit-equal")
+        check(bool((p999 <= 1e-4).all()), f"kernel D: p99.9 |Δ|/peak {p999.tolist()} > 1e-4")
+        check(bool((rel.amax(dim=0) <= 1e-1).all()),
+              f"kernel D: max |Δ|/peak {rel.amax(dim=0).tolist()} > 1e-1")
+        check(bool(torch.isfinite(dk).all()), "kernel D: non-finite gradients")
+        pp_d = replayed_pair_pixels(out, starts, cfg)
+        bound_d = bound(nbytes(att, pid, starts, out, ct_img, ct_T, dk),
+                        OPS_PER_PAIR_PIXEL_D * pp_d)
+        nh = att.shape[0]
+        k_slots = cfg.tile_span ** 2
+        buf_ms = cuda_ms(lambda: torch.zeros((nh * k_slots, 9), device=dev)
+                         .view(nh, k_slots, 9).sum(dim=1), 10)
+        results.append(dict(
+            name="stream_backward", route="cuda",
+            source="gsjax_torch/csrc/stream_bwd.cu",
+            replaces="gsjax/render/pallas_stream.py:685",
+            max_abs_err=err_d,
+            ms=cuda_ms(lambda: stream.stream_backward(*d_args), 10),
+            plain_ms=cuda_ms(lambda: stream.stream_backward_plain(*d_args), 2),
+            bound_ms=bound_d[0], bound_by=bound_d[1], library_ms=None,
+        ))
+        print(f"# D: {pp_d} pair-pixels replayed; of its wrapper's time, "
+              f"zeroing the per-pair buffer [{nh * k_slots}, 9] and summing its "
+              f"classes take {buf_ms:.3f} ms")
+    del p, ph, layout, bins, att, pid, starts, out, img_t, T_t, img, dk, dk2, dp
+    del diff, rel, ct_img, ct_T
+
+    # 9b. gradients on the small scenes: card against the CPU's plain path,
+    # with a background so the transmittance's cotangent is not zero
+    for name, scene_kw, cfg_kw, (w, h) in EDGE_CASES[:3]:
+        grads = []
+        for device in ("cpu", dev):
+            gc = small_scene(np.random.default_rng(7), **scene_kw)
+            gc = gt.Gaussians.from_numpy(
+                *(getattr(gc, f).detach().numpy() for f in RAW_FIELDS), device=device)
+            cam = gt.Camera.create(fx=80.0, fy=80.0, width=w, height=h, device=device)
+            cfg_e = gt.RenderConfig(backend="stream", chunk=32,
+                                    background=(0.2, 0.3, 0.5), **cfg_kw)
+            tgt = torch.from_numpy(np.random.default_rng(8).uniform(
+                0, 1, (h, w, 3)).astype(np.float32)).to(device)
+            torch.mean((gt.render(gc, cam, cfg_e) - tgt) ** 2).backward()
+            grads.append({f: getattr(gc, f).grad.cpu() for f in RAW_FIELDS})
+        worst = {}
+        for f in RAW_FIELDS:
+            a, b = grads[0][f], grads[1][f]
+            rel = (a - b).abs() / (a.abs().max() + 1e-12)
+            worst[f] = (float(torch.quantile(rel.flatten(), 0.99)), float(rel.max()))
+            check(worst[f][0] <= 5e-3 and worst[f][1] <= 1e-1 and
+                  bool(torch.isfinite(b).all()),
+                  f"gradients {name}.{f}: card vs cpu p99 / max rel {worst[f]}")
+        print(f"# gradients {name} {w}x{h}: card vs cpu (p99, max) |Δ|/peak "
+              f"{ {f: (f'{x:.1e}', f'{y:.1e}') for f, (x, y) in worst.items()} }")
+
+    # 10. train: the training path through the user's entry points ---------
+    from gsjax_torch import train as gtrain
+
+    cams_t = [c.to(dev) for c in cams[:TRAIN_VIEWS]]
+    with torch.no_grad():
+        targets = [gt.render(g, c, cfg) for c in cams_t]
+        for v, c in enumerate(cams_t):
+            aux = gt.render(g_train, c, cfg, return_aux=True)[1]
+            ovf = {k: int(aux[k]) for k in aux if k.endswith("overflow")}
+            check(all(x == 0 for x in ovf.values()), f"train view {v}: overflow {ovf}")
+    params0 = {n: t.detach().clone() for n, t in g_train.named_parameters()}
+    opt = torch.optim.Adam(g_train.parameters(), lr=1e-3)  # bench.py: optax.adam(1e-3)
+    steps = [gtrain.make_step_fn(c, cfg, opt) for c in cams_t]
+    order = list(range(TRAIN_VIEWS)) + [0] * FIXED_STEPS
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    for v in order:
+        t0 = time.perf_counter()
+        loss = steps[v](g_train, targets[v])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = dict(kernels.LAUNCHES)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"# train: {len(order)} steps (views {order}); launches {launches}; "
+          f"losses {[f'{x:.6f}' for x in losses]}")
+    for name, n in launches.items():
+        check(n == len(order), f"kernel {name} launched {n} times over "
+              f"{len(order)} training steps (want one per step)")
+    for n_, t in g_train.named_parameters():
+        check(t.grad is not None and bool(torch.isfinite(t.grad).all()),
+              f"train: gradient of {n_} missing or non-finite")
+        check(not torch.equal(t.detach(), params0[n_]), f"train: {n_} did not change")
+    rel0 = abs(losses[0] - TRAIN_LOSS0) / TRAIN_LOSS0
+    print(f"# train: view 0's first loss {losses[0]:.7f} (bench.py's {TRAIN_LOSS0}, "
+          f"rel diff {rel0:.2e}); after the fixed steps {losses[-1]:.7f}")
+    check(rel0 <= 0.05, f"train: view 0's first loss {losses[0]} not within 5% "
+          f"of {TRAIN_LOSS0}")
+    check(losses[-1] < losses[0], f"train: view 0's loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+    for r in results:
+        r["launches"] = launches[{"repeat_fat_parents": "repeat",
+                                  "expand_pairs": "expand",
+                                  "stream_forward": "stream_fwd",
+                                  "stream_backward": "stream_bwd"}[r["name"]]]
+
+    # the step's split, on three more steps at view 0
+    split_ms = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((gt.render(g_train, cams_t[0], cfg) - targets[0]) ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, (a, b) in zip(split_ms, ((t0, t1), (t1, t2), (t2, t3))):
+            split_ms[k].append((b - a) * 1e3)
+    split_t = {k: round(statistics.median(x), 3) for k, x in split_ms.items()}
+    print(f"# train timing on {card}: median {statistics.median(step_ms):.3f} ms per "
+          f"fwd + bwd + Adam step over {len(step_ms)} steps (host clock, "
+          f"synchronize on both sides; all {[round(x, 2) for x in step_ms]}); "
+          f"split (median of 3 staged steps, ms) {split_t}; peak device memory "
+          f"{train_peak_gb:.2f} GiB")
+
     for r in results:
         print(f"# kernel {r['name']} on {card}: {r['ms']:.3f} ms vs plain "
-              f"{r['plain_ms']:.3f} ms, max |err| {r['max_abs_err']:.3e}, "
-              f"{r['launches']} launches in the serve run")
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}), max |err| {r['max_abs_err']:.3e}, "
+              f"{r['launches']} launches in the training run")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as fh:
         json.dump(dict(card=card, kind=kind, kernels=results, frame_ms=frame_ms,
-                       stages_ms=stages, peak_gib=peak_gb, loss0=loss0), fh, indent=1)
+                       stages_ms=stages, peak_gib=peak_gb, loss0=loss0,
+                       train_losses=losses, train_step_ms=step_ms,
+                       train_split_ms=split_ms, train_peak_gib=train_peak_gb),
+                  fh, indent=1)
 
     print(json.dumps({"kernels": results}))
     print(smi)

@@ -3,12 +3,14 @@
 The serving path of gsjax: project + SH → home layout with fat-splat
 splitting (CUDA kernel A) → pair expansion with the exact ellipse cull
 (CUDA kernel B) and one stable (tile, depth, pid) sort → front-to-back
-stream blend (CUDA kernel C). On a CUDA device the kernels run (built
-from gsjax_torch/csrc at first use); on the CPU their plain PyTorch
-versions do. Forward only for now. Never imports jax or gsjax.
+stream blend (CUDA kernel C), and its backward (CUDA kernel D) for
+training (gsjax_torch.train: Adam steps, fit, checkpoints). On a CUDA
+device the kernels run (built from gsjax_torch/csrc at first use); on the
+CPU their plain PyTorch versions do. Constructors put tensors on the card
+unless device="cpu" is passed. Never imports jax or gsjax.
 
   Gaussians, Camera, RenderConfig, render, OrbitCamera,
-  render_trajectory, render_orbit
+  render_trajectory, render_orbit, train
 """
 
 from gsjax_torch.camera.orbit import OrbitCamera
@@ -17,6 +19,7 @@ from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.core.gaussians import Gaussians
 from gsjax_torch.render.pipeline import render
 from gsjax_torch.viewer import render_orbit, render_trajectory
+from gsjax_torch import train
 
 __all__ = [
     "Gaussians",
@@ -26,4 +29,5 @@ __all__ = [
     "OrbitCamera",
     "render_trajectory",
     "render_orbit",
+    "train",
 ]

@@ -1,0 +1,241 @@
+"""The port's training benchmark: bench.py's per-frame-exact modes on the
+card, through gsjax_torch.
+
+    python -m gsjax_torch.bench.run --mode orbit-exact   # 30-view 1080p orbit
+    python -m gsjax_torch.bench.run --mode fixed         # fixed camera, black target
+    python -m gsjax_torch.bench.run --quick --mode fixed --frames 2 --device cpu
+
+orbit-exact: the clean bonsai-scale scene renders each orbit view's
+target; a perturbed copy (`perturb`) then takes one fwd + bwd + Adam step
+at every view, in order. fixed: `--frames` steps at the bench camera
+toward a black target. Every view's overflow counters must read 0, or
+the run fails. The lazy modes (orbit, fixed-lazy) wait for the lazy
+frame plans; autotune is not ported, so the copy budgets come from
+--fat-cap / --fat-live-cap, by default the ones the reference's autotune
+measured for this orbit.
+
+Prints one JSON line, bench.py's {"metric": "1080p_fwd_bwd_ms_per_frame",
+"value": ms, "unit": "ms", "mode": ..., "loss0": ..., ...} plus "device"
+(the card's name and power limit). There is no "vs_baseline": bench.py's
+divides by a TPU target.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from gsjax_torch.camera.orbit import OrbitCamera
+from gsjax_torch.core.config import RenderConfig
+from gsjax_torch.core.gaussians import Gaussians
+from gsjax_torch.render.pipeline import render
+from gsjax_torch.bench.synth import bench_camera, bonsai_like
+from gsjax_torch.train import make_step_fn
+
+SWEEP_DEG = 30.0  # bench.py's default orbit sweep, ~1°/view at 30 views
+FAT_CAP, LIVE_CAP = 2_342_912, 1_617_920  # the reference's autotune, r05 orbit
+OVERFLOW_KEYS = ("n_pair_overflow", "n_band_overflow", "n_tile_overflow",
+                 "n_fat_overflow", "n_clamped")
+
+
+def perturb(g: Gaussians, seed: int = 7) -> Gaussians:
+    """bench.py::perturb: small noise on means, SH and opacity logits (the
+    same numpy draws in the same order), as a new module."""
+    rng = np.random.default_rng(seed)
+
+    def noisy(p, sd):
+        noise = rng.normal(0, sd, tuple(p.shape)).astype("float32")
+        return p.detach() + torch.from_numpy(noise).to(p.device)
+
+    means = noisy(g.means, 2e-3)
+    sh = noisy(g.sh, 2e-2)
+    opacity_logits = noisy(g.opacity_logits, 5e-2)
+    return Gaussians(means, g.log_scales.detach().clone(),
+                     g.quats.detach().clone(), sh, opacity_logits)
+
+
+def orbit_cameras(views: int, width: int, height: int, device="cuda"):
+    """bench.py::orbit_cameras at its default sweep: `views` cameras over
+    SWEEP_DEG of azimuth, view 0 at the fixed bench pose."""
+    r = float(np.hypot(4.0, 0.6))
+    beta = float(np.arcsin(-0.6 / r))
+    oc = OrbitCamera(alpha=float(np.pi), beta=beta, radius=r, target=(0.0, 0.0, 0.0))
+    return oc.trajectory(views, alpha_end=float(np.deg2rad(SWEEP_DEG)), fx=1600.0,
+                         fy=1600.0, width=width, height=height, device=device)
+
+
+def device_label(dev: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    if dev.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def profile_steps(step, n: int, dev: torch.device, top: int = 12) -> str:
+    """Trace `n` calls of step() with torch.profiler: per step, the wall
+    time, the device time (the sum of the device-side events: kernels,
+    copies, sets), the device's idle share, and the largest kernels and
+    aten ops by device time. The tracing itself slows the host, so the
+    wall time and idle share read high against an untraced run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    step()
+    _sync(dev)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        _sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    ka = prof.key_averages()
+    own = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key) for e in ka
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                 reverse=True)
+    ops = sorted(((e.device_time_total / 1e3 / n, e.count / n, e.key) for e in ka
+                  if e.key.startswith("aten::") and e.device_time_total > 0), reverse=True)
+    busy = sum(t for t, _, _ in own)
+    lines = [f"# profile of {n} steps: wall {wall:.3f} ms/step, device busy "
+             f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f}"]
+    lines += [f"#   kernel {t:8.3f} ms/step  x{c:g}  {k[:100]}" for t, c, k in own[:top]]
+    lines += [f"#   op     {t:8.3f} ms/step  x{c:g}  {k}" for t, c, k in ops[:top]]
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="small scene smoke run; always the fixed mode")
+    ap.add_argument("--n", type=int, default=None, help="splat count")
+    ap.add_argument("--mode", default="orbit-exact",
+                    choices=["orbit-exact", "fixed", "orbit", "fixed-lazy"])
+    ap.add_argument("--views", type=int, default=30)
+    ap.add_argument("--frames", type=int, default=10, help="fixed mode: steps")
+    ap.add_argument("--width", type=int, default=None,
+                    help="default 1920 (640 with --quick)")
+    ap.add_argument("--height", type=int, default=None,
+                    help="default 1080 (480 with --quick)")
+    ap.add_argument("--forward-only", action="store_true",
+                    help="time the forward only")
+    ap.add_argument("--fat-cap", type=int, default=None)
+    ap.add_argument("--fat-live-cap", type=int, default=None)
+    ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
+                    help="after the timed run, trace this many more steps at "
+                    "view 0 with torch.profiler (printed to stderr)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu: the plain PyTorch versions, "
+                    "for tests; a CPU time is not a device time")
+    args = ap.parse_args(argv)
+
+    if args.mode in ("orbit", "fixed-lazy"):
+        raise NotImplementedError(
+            f"--mode {args.mode} trains through lazy frame plans, which are "
+            "not ported yet: ROADMAP queue 1 'lazy frame plans'"
+        )
+    # as in bench.py, --quick runs the fixed mode whatever --mode says
+    mode = "fixed" if args.quick else args.mode
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run the plain path")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    if args.quick:
+        n, width, height = args.n or 50_000, args.width or 640, args.height or 480
+        caps = dict(fat_cap=args.fat_cap, fat_live_cap=args.fat_live_cap)
+    else:
+        n, width, height = args.n or 1_200_000, args.width or 1920, args.height or 1080
+        caps = dict(fat_cap=args.fat_cap or FAT_CAP,
+                    fat_live_cap=args.fat_live_cap or LIVE_CAP)
+    cfg = RenderConfig(backend="stream", chunk=128, **caps)
+    g = bonsai_like(n=n, sh_degree=0, device=dev)
+    if mode == "orbit-exact":
+        cams = orbit_cameras(args.views, width, height, device=dev)
+    else:
+        cams = [bench_camera(width=width, height=height, device=dev)]
+
+    extra = {"mode": mode, "scene": "bonsai"}
+    if mode == "fixed":
+        targets = [torch.zeros((height, width, 3), dtype=torch.float32, device=dev)]
+        g_train = g
+    else:
+        with torch.no_grad():
+            targets = [render(g, cam, cfg) for cam in cams]
+        black = float(torch.mean(targets[0].double() ** 2))
+        print(f"# targets: {len(targets)} view renders; black-target loss of "
+              f"view 0 = {black:.6f}", file=sys.stderr)
+        extra["black_loss0"] = round(black, 5)
+        g_train = perturb(g)
+        del g
+
+    # every view's budgets must hold: an overflow means dropped work
+    with torch.no_grad():
+        ovf = {}
+        for cam in cams:
+            aux = render(g_train, cam, cfg, return_aux=True)[1]
+            for k in OVERFLOW_KEYS:
+                ovf[k] = ovf.get(k, 0) + int(aux[k])
+    print(f"# overflow over {len(cams)} view(s): {ovf} (must be 0)", file=sys.stderr)
+    if any(ovf.values()):
+        print("# FAIL: overflow counters nonzero; raise --fat-cap / "
+              "--fat-live-cap", file=sys.stderr)
+        return 1
+
+    opt = torch.optim.Adam(g_train.parameters(), lr=1e-3)  # bench.py: optax.adam(1e-3)
+    if args.forward_only:
+        def make_step(cam):
+            def step(g, target):
+                with torch.no_grad():
+                    return torch.mean(render(g, cam, cfg))
+            return step
+    else:
+        make_step = lambda cam: make_step_fn(cam, cfg, opt)
+    steps = [make_step(cam) for cam in cams]
+
+    t0 = time.perf_counter()
+    loss = steps[0](g_train, targets[0])  # warm-up: kernel build, caches
+    loss0 = float(loss)
+    print(f"# mode={mode} n={n} {width}x{height} on {device_label(dev)}: "
+          f"warm-up {time.perf_counter() - t0:.1f}s loss0={loss0:.6f}",
+          file=sys.stderr)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    if mode == "orbit-exact":
+        for i, step in enumerate(steps):
+            loss = step(g_train, targets[i])
+        extra.update(views=len(cams), sweep_deg=SWEEP_DEG)
+        n_steps = len(cams)
+    else:
+        for _ in range(args.frames):
+            loss = steps[0](g_train, targets[0])
+        extra.update(frames=args.frames)
+        n_steps = args.frames
+    final = float(loss)  # waits for the device
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    extra.update(loss0=round(loss0, 5), final_loss=round(final, 5))
+    if args.profile:
+        print(profile_steps(lambda: steps[0](g_train, targets[0]), args.profile, dev),
+              file=sys.stderr)
+    print(json.dumps({"metric": "1080p_fwd_bwd_ms_per_frame", "value": round(ms, 3),
+                      "unit": "ms", **extra, "device": device_label(dev)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,7 +11,7 @@ from gsjax_torch.core.gaussians import Gaussians
 
 
 def bonsai_like(n: int = 1_200_000, seed: int = 0, sh_degree: int = 0,
-                device="cpu") -> Gaussians:
+                device="cuda") -> Gaussians:
     """~Bonsai-scale scene: dense central object + sparse surroundings,
     the surrounding shell inside the orbit radius and the log-normal
     scale tail clamped at 0.04 (see the reference's docstring)."""
@@ -39,7 +39,7 @@ def bonsai_like(n: int = 1_200_000, seed: int = 0, sh_degree: int = 0,
 
 
 def garden_like(n: int = 5_000_000, seed: int = 1, sh_degree: int = 2,
-                device="cpu") -> Gaussians:
+                device="cuda") -> Gaussians:
     """~garden-scale outdoor scan: ground plane + central subject +
     shrubbery, splat sizes shrunk as 1/sqrt(n/1.2M)."""
     rng = np.random.default_rng(seed)
@@ -71,7 +71,7 @@ def garden_like(n: int = 5_000_000, seed: int = 1, sh_degree: int = 2,
     )
 
 
-def bench_camera(width: int = 1920, height: int = 1080, device="cpu") -> Camera:
+def bench_camera(width: int = 1920, height: int = 1080, device="cuda") -> Camera:
     """1080p camera looking at the synthetic object (view 0 of the bench
     orbit)."""
     return Camera.look_at(

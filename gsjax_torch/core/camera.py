@@ -17,7 +17,9 @@ from gsjax_torch.core.gaussians import quat_to_rotmat, rotmat_to_quat
 @dataclasses.dataclass(frozen=True)
 class Camera:
     """Pose is (position [3], quat [4] (w,x,y,z), camera-to-world); fx/fy
-    are 0-d float32 tensors, the rest plain numbers."""
+    are 0-d float32 tensors, the rest plain numbers. `create` and
+    `look_at` put the tensors on the card unless device="cpu" is
+    passed."""
 
     position: torch.Tensor
     quat: torch.Tensor
@@ -32,7 +34,7 @@ class Camera:
     def create(position=(0.0, 0.0, 0.0), quat=(1.0, 0.0, 0.0, 0.0),
                fx: float = 1132.0, fy: float = 1132.0, width: int = 800,
                height: int = 600, near: float = 0.01, far: float = 1000.0,
-               device="cpu") -> "Camera":
+               device="cuda") -> "Camera":
         t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
         return Camera(
             position=t(position),
@@ -49,7 +51,8 @@ class Camera:
 
     @staticmethod
     def look_at(position, target, up=(0.0, 1.0, 0.0), **kwargs) -> "Camera":
-        """Camera at `position` looking at `target` (+z toward target)."""
+        """Camera at `position` looking at `target` (+z toward target);
+        `kwargs` go to `create` (intrinsics, image size, device)."""
         position = np.asarray(position, np.float64)
         target = np.asarray(target, np.float64)
         up = np.asarray(up, np.float64)

@@ -36,18 +36,20 @@ class Gaussians(nn.Module):
 
     @staticmethod
     def from_numpy(means, log_scales, quats, sh, opacity_logits,
-                   device="cpu") -> "Gaussians":
+                   device="cuda") -> "Gaussians":
         """Raw parameters as numpy arrays (e.g. a gsjax scene's fields) →
-        Gaussians on `device`, bit for bit."""
+        Gaussians on `device`, bit for bit. The card by default: a CPU
+        caller passes device="cpu" (there is no silent fallback)."""
         t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
         return Gaussians(t(means), t(log_scales), t(quats), t(sh),
                          t(opacity_logits))
 
     @staticmethod
     def from_activated(means, scales, quats, opacities, rgb=None, sh=None,
-                       device="cpu") -> "Gaussians":
+                       device="cuda") -> "Gaussians":
         """Build from activated values: linear scales, [0,1] opacities, and
-        either direct RGB in [0,1] (degree 0) or SH coefficients."""
+        either direct RGB in [0,1] (degree 0) or SH coefficients. On the
+        card unless device="cpu" is passed."""
         t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
         means, scales, quats = t(means), t(scales), t(quats)
         opacities = torch.clamp(t(opacities), 1e-6, 1.0 - 1e-6)

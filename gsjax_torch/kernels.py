@@ -1,16 +1,17 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The sources under gsjax_torch/csrc/ compile with nvcc into ONE shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers,
-so the build takes seconds). The build happens at first use, into
-gsjax_torch/_build/, under a file name that carries a hash of the sources
-and flags: an edited source rebuilds, an unchanged one loads the cached
-library.
+The sources under gsjax_torch/csrc/ compile with nvcc, one process per
+source and all at once, then link into ONE shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds). The build happens at first use, into gsjax_torch/_build/, under
+a file name that carries a hash of the sources and flags: an edited
+source rebuilds, an unchanged one loads the cached library.
 
 `-fmad=false` is load-bearing: the ellipse-cull quadratics of the repeat
 and expansion kernels must round exactly as their plain PyTorch versions
 do (an FMA-contracted `a·x·x + 2·b·x·y + c·y·y` flips borderline pairs),
-and the blend kernel's `fexp` must be the reference polynomial op for op.
+and the blend kernels' `fexp` must be the reference polynomial op for op
+(the backward kernel remakes the forward's include decisions from it).
 Never build with --use_fast_math.
 
 LAUNCHES counts, per kernel, the launches its wrapper made; a run zeroes
@@ -25,19 +26,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("repeat.cu", "expand.cu", "stream_fwd.cu")
+SOURCES = ("repeat.cu", "expand.cu", "stream_fwd.cu", "stream_bwd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0}
+LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0, "stream_bwd": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argtypes); each returns cudaGetLastError() as an int
@@ -52,6 +54,10 @@ _SIGNATURES = {
     # alpha_clamp, alpha_min, eps_T, out, stream
     "gsjax_stream_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                              _F, _P, _P),
+    # att, pid, starts, fwd, ct_img, ct_T, n_tiles, ty0, tiles_x, ts, chunk,
+    # k_slots, alpha_clamp, alpha_min, eps_T, dpair, stream
+    "gsjax_stream_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _F, _F, _F, _P, _P),
 }
 
 _lib = None
@@ -81,24 +87,35 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libgsjax_torch_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Start every nvcc command at once, wait for all, raise on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    for cmd, p in zip(cmds, procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}\n{err}"
+            )
+
+
 def build() -> str:
     """Compile the kernels if the hashed library is missing; returns its
-    path. Writes to a temporary name first, so a concurrent or cut build
-    never leaves a half-written library under the final name."""
+    path. One nvcc per source, all started together, then one link, in a
+    scratch directory: a concurrent or cut build never leaves a
+    half-written library under the final name."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path[:-3]}.tmp{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src}.o") for src in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+                  for src, obj in zip(SOURCES, objs)])
+        so = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
+        os.replace(so, path)
     return path
 
 

@@ -1,5 +1,5 @@
 """Home-tile splat layout for the stream backend — the PyTorch counterpart
-of gsjax/render/homesort.py (forward only).
+of gsjax/render/homesort.py.
 
 The projected splats are re-laid out once per frame in (home tile, depth)
 order. A splat's home tile is the center of the 3×3-tile block of its
@@ -11,6 +11,11 @@ at that block's center and windowed to block ∩ rect; copy blocks the
 ellipse cannot reach at alpha_min are culled. Budget overflow
 (fat_max_blocks / fat_cap / fat_live_cap) is counted, never silent.
 LEGACY (footprint_clamp=True): home = the mean's tile.
+
+The layout's gather (`home_gather`) is differentiable: a primary row's
+gradient routes back through the inverse sort permutation, and a copy
+row's gradient sums onto its parent (`reduce_copy_segments`), so a fat
+splat's parent gets the gradient of every block it covers.
 
 Kernel A (`repeat_fat_parents`, csrc/repeat.cu) replaces the TPU's
 gsjax/render/homesort.py::_repeat_kernel.
@@ -179,10 +184,70 @@ def repeat_fat_parents(src18, fb, fbe, n_copies, fat_cap: int, tiles_x: int,
 # --------------------------------------------------------------------------
 
 
-def home_gather(x, tail_x, perm):
-    """concat(x [N, C], tail_x [F, C])[perm]. Forward only: the VJP that
-    sums copy-row gradients onto their parents comes with training."""
-    return torch.cat([x, tail_x])[perm]
+def reduce_copy_segments(d_tail, seg_base):
+    """[F, C] copy-row values → [N, C] per-parent sums; the copies of
+    parent i are tail rows [seg_base[i], seg_base[i+1]).
+
+    Block-bounded prefix differencing, as in the reference: a global f32
+    cumsum's running magnitude grows ~sqrt(F)·|g| and small segments
+    would difference two large numbers (242x relative error at 1M copy
+    rows, tests/test_homegather_precision.py). Within each block of
+    B = 1024 rows an inclusive prefix p and the block total T; a segment
+    is shorter than B (fat_max_blocks < 1024, guarded in _exact_rows), so
+    it spans at most two blocks and its sum is p[b-1] − p[a-1], plus
+    T[block(a-1)] when it crosses a block edge."""
+    f, c = d_tail.shape
+    B = 1024
+    nb = -(-f // B)
+    dt = torch.nn.functional.pad(d_tail.to(torch.float32), (0, 0, 0, nb * B - f))
+    p = torch.cumsum(dt.reshape(nb, B, c), dim=1)
+    T = p[:, -1:, :].expand(nb, B, c)
+    paug = torch.cat([p, T], dim=-1).reshape(nb * B, 2 * c)
+    idx = torch.clamp(seg_base.to(torch.int64), max=f) - 1  # [N+1]
+    pb = torch.where((idx >= 0)[:, None], paug[torch.clamp(idx, min=0)], 0.0)
+    blk = torch.clamp(idx, min=0) // B
+    cross = (blk[1:] > blk[:-1])[:, None]
+    return (pb[1:, :c] - pb[:-1, :c]) + torch.where(cross, pb[:-1, c:], 0.0)
+
+
+def reduce_home_rows(d, f: int, inv, inv_tail, seg_base):
+    """[NH, C] home-row values → [N, C] splat-order values, the transpose
+    of home_gather: primary rows route through the inverse permutation
+    (an index ≥ NH was truncated and gets zero), copy rows sum onto their
+    parents."""
+    nh = d.shape[0]
+    dpad = torch.cat([d, torch.zeros_like(d[:1])])
+    take = lambda idx: dpad[torch.clamp(idx, max=nh)]
+    dx = take(inv)
+    if f:
+        dx = dx + reduce_copy_segments(take(inv_tail), seg_base).to(d.dtype)
+    return dx
+
+
+class _HomeGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tail_x, perm, inv, inv_tail, seg_base):
+        ctx.save_for_backward(inv, inv_tail, seg_base)
+        ctx.f = tail_x.shape[0]
+        return torch.cat([x, tail_x])[perm]
+
+    @staticmethod
+    def backward(ctx, d):
+        inv, inv_tail, seg_base = ctx.saved_tensors
+        dx = reduce_home_rows(d, ctx.f, inv, inv_tail, seg_base)
+        return dx, None, None, None, None, None
+
+
+def home_gather(x, tail_x, perm, inv, inv_tail, seg_base):
+    """concat(x [N, C], tail_x [F, C])[perm], differentiable in x.
+
+    `tail_x` holds the fat-splat copy rows, each an exact copy of its
+    parent's row of `x` (a stop-gradient copy: its gradient reaches x
+    through the segment sum, not through tail_x). `inv` [N] / `inv_tail`
+    [F]: each pre-sort row's position in the output (≥ len(perm) ⇒
+    truncated ⇒ zero gradient); `seg_base` [N+1]: the copies of parent i
+    are tail rows [seg_base[i], seg_base[i+1])."""
+    return _HomeGather.apply(x, tail_x, perm, inv, inv_tail, seg_base)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,7 +362,8 @@ def fat_repeat_inputs(p, tiles_x: int, tiles_y: int, cfg: RenderConfig):
 def _exact_rows(p, tiles_x, tiles_y, cfg):
     """Exact-mode key material for the N primaries and the fat_cap copy
     slots: (home_key, depth, wpa, wpb, on_ext, tail_tab, n_ovf, n_copies,
-    live_cap)."""
+    live_cap, seg_base); seg_base [N+1]: parent i's copy slots are
+    [seg_base[i], seg_base[i+1]), clipped at fat_cap."""
     if cfg.fat_max_blocks >= 1024:
         # the training VJP's block-bounded segment reduction needs every
         # parent's copy run shorter than 1024 rows (reference behaviour)
@@ -317,6 +383,8 @@ def _exact_rows(p, tiles_x, tiles_y, cfg):
 
     fat_cap, live_cap = resolve_fat_caps(n, cfg)
     n_copies = n_ex.sum(dtype=torch.int64)
+    base = torch.cumsum(n_ex.to(torch.int64), 0) - n_ex
+    seg_base = torch.clamp(torch.cat([base, n_copies[None]]), max=fat_cap)
     g18, fb, fbe = fat_parent_table(p, x0, y0, x1, y1, sbx, n_ex)
     tail_tab, tkeys = repeat_fat_parents(
         g18, fb, fbe, n_copies, fat_cap, tiles_x, tiles_y, span,
@@ -336,7 +404,7 @@ def _exact_rows(p, tiles_x, tiles_y, cfg):
         + torch.clamp(n_copies - fat_cap, min=0)
     )
     return (home_key, depth_all, wpa, wpb, torch.cat([on, tail_ok]),
-            tail_tab, n_ovf, n_copies, live_cap)
+            tail_tab, n_ovf, n_copies, live_cap, seg_base)
 
 
 def sort_perm(key_hi: torch.Tensor, dkey: torch.Tensor) -> torch.Tensor:
@@ -376,13 +444,18 @@ def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig):
         tail_tab = torch.zeros((0, PCOLS + 1), dtype=torch.float32, device=dev)
         n_ovf = torch.zeros((), dtype=torch.int64, device=dev)
         n_copies = torch.zeros((), dtype=torch.int64, device=dev)
+        seg_base = torch.zeros(n + 1, dtype=torch.int64, device=dev)
         nh = n
     else:
         (home_key, depth_all, wpa, wpb, on_ext, tail_tab, n_ovf, n_copies,
-         live_cap) = _exact_rows(p, tiles_x, tiles_y, cfg)
+         live_cap, seg_base) = _exact_rows(p, tiles_x, tiles_y, cfg)
         nh = n + live_cap
 
     perm_full = sort_perm(home_key, depth_bits(depth_all))
+    # the inverse permutation routes home-row gradients back; the indices
+    # are unique, so this scatter is deterministic
+    inv_ext = torch.empty_like(perm_full)
+    inv_ext[perm_full] = torch.arange(perm_full.shape[0], device=dev)
     perm = perm_full[:nh]
     home_sorted = home_key[perm]
     n_live = on_ext.sum()
@@ -398,7 +471,7 @@ def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig):
          p.opacity[:, None], torch.zeros_like(p.depth)[:, None]],
         dim=-1,
     )  # [N, 12]; the tail rows carry the same column order
-    ph = home_gather(packed_n, tail_tab, perm)
+    ph = home_gather(packed_n, tail_tab, perm, inv_ext[:n], inv_ext[n:], seg_base)
     wpa_h, wpb_h = wpa[perm], wpb[perm]
     win = torch.stack(
         [wpa_h // 16384, wpa_h % 16384, wpb_h // 16384, wpb_h % 16384], dim=-1

@@ -4,7 +4,8 @@ home-anchored bins → stream blend.
 
 Backends:
   stream — the hand-written CUDA kernels on a CUDA device, their plain
-           PyTorch versions on the CPU
+           PyTorch versions on the CPU; differentiable (kernel D and the
+           home gather's segment-sum VJP)
   auto   — stream on every device
   oracle, xla, pallas — not ported yet (NotImplementedError names the
            ROADMAP item)
@@ -41,8 +42,11 @@ def _resolve_backend(cfg: RenderConfig) -> str:
 def render(g: Gaussians, cam: Camera, cfg: RenderConfig = RenderConfig(),
            return_aux: bool = False, passes=()):
     """Render an [H, W, 3] image on the device of `g`'s tensors (the
-    camera's tensors move there). `passes` (post-projection transforms)
-    are not ported yet and must be empty."""
+    camera's tensors move there). Differentiable with respect to every
+    Gaussians field: autograd through projection and SH, the home
+    gather's VJP (copy rows of fat splats sum onto their parents) and
+    the blend's hand-written backward (kernel D on the card). `passes`
+    (post-projection transforms) are not ported yet and must be empty."""
     _resolve_backend(cfg)
     if passes:
         raise NotImplementedError(

@@ -1,5 +1,5 @@
 """Stream backend tile blend — the PyTorch counterpart of
-gsjax/render/pallas_stream.py (forward).
+gsjax/render/pallas_stream.py, forward and backward.
 
 Splats are laid out once per frame in (home tile, depth) order
 (render/homesort.py) and the pairs sorted by (tile, depth, pid)
@@ -12,10 +12,24 @@ pair stream front to back in chunks of cfg.chunk pairs:
   T_act tracks included pairs only; a tile exits at a chunk boundary once
   every pixel's C < eps.
 
+The backward is the reference's hand-derived VJP (pallas_flat.py's module
+docstring): chunks replay in reverse from the forward's exit state (C and
+n_done), C at a chunk's entry is rebuilt by division, and
+
+  dL/dα_i = v_i·T_i − (U_i + ct_T·T_act)/(1−α_i),  v_i = rgb_i·ct_img,
+  U_i = Σ_{j>i} v_j·w_j,
+
+chained to mean2d, conic, rgb and opacity per pair. Near T ≈ eps the
+rebuilt include set may differ from the forward's by one splat per pixel,
+as in the reference.
+
 Kernel C (`stream_forward`, csrc/stream_fwd.cu) replaces the TPU kernel
-gsjax/render/pallas_stream.py::_stream_fwd_kernel. The TPU's band DMA,
-pid windows, bf16 split table and slot grouping are TPU plumbing and have
-no counterpart: the CUDA kernel reads exact f32 attributes by home row.
+gsjax/render/pallas_stream.py::_stream_fwd_kernel, kernel D
+(`stream_backward`, csrc/stream_bwd.cu) its _stream_bwd_kernel. The TPU's
+band DMA, pid windows, bf16 split table, slot grouping and read-modify-
+write gradient bands are TPU plumbing and have no counterpart: the CUDA
+kernels read exact f32 attributes by home row, and D writes one gradient
+row per pair id.
 """
 
 from __future__ import annotations
@@ -138,24 +152,167 @@ def stream_forward(att, pid, starts, ty0: int, tiles_x: int, cfg: RenderConfig):
     return out
 
 
+def stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
+                          tiles_x: int, cfg: RenderConfig):
+    """Plain PyTorch version of kernel D (same contract as
+    stream_backward). Tiles go in batches of similar chunk counts (sorted
+    by n_done, as the forward batches by pair count); each batch replays
+    its chunks in reverse, tiles leaving once their chunks are done. The
+    products and sums down a chunk run in the kernel's order (cumprod,
+    cumsum); each pair's gradients land in row pid of a per-pair buffer
+    that is summed per home row, as in the kernel."""
+    dev = att.device
+    ts, chunk = cfg.tile_size, cfg.chunk
+    n_px = ts * ts
+    k_slots = cfg.tile_span * cfg.tile_span
+    nh = att.shape[0]
+    counts = (starts[1:] - starts[:-1]).to(torch.int64)
+    n_done = fwd_out[:, 5, 0].to(torch.int64)
+    order = torch.argsort(n_done, descending=True, stable=True)
+    nd_sorted = n_done[order].cpu()
+    n_busy = int((nd_sorted > 0).sum())
+    pix = torch.arange(n_px, device=dev)
+    pxl, pyl = (pix % ts).to(torch.float32), (pix // ts).to(torch.float32)
+    lane = torch.arange(chunk, device=dev)
+    eps = cfg.transmittance_eps
+    dpair = torch.zeros((nh * k_slots, 9), dtype=torch.float32, device=dev)
+
+    for b0 in range(0, n_busy, _PLAIN_TILE_BATCH):
+        tb = order[b0:b0 + _PLAIN_TILE_BATCH]
+        cnt = counts[tb]
+        st = starts[tb].to(torch.int64)
+        nd = n_done[tb]
+        px = ((tb % tiles_x) * ts).to(torch.float32)[:, None] + pxl
+        py = ((tb // tiles_x + ty0) * ts).to(torch.float32)[:, None] + pyl
+        ct = ct_img[tb]  # [b, n_px, 3]
+        ctTT = ct_T[tb] * fwd_out[tb, 3]  # ct_T · T_act
+        C = fwd_out[tb, 4].clone()  # transmittance at the exit of chunk k
+        S = torch.zeros_like(C)  # Σ v·w over the chunks after k
+        for k in range(int(nd_sorted[b0]) - 1, -1, -1):
+            act = torch.nonzero(k < nd).squeeze(1)
+            pos = k * chunk + lane
+            valid = pos[None, :] < cnt[act, None]  # [b, chunk]
+            idx = torch.where(valid, st[act, None] + pos, 0)
+            pids = pid[idx].to(torch.int64)
+            a = torch.where(valid[..., None], att[pids // k_slots], 0.0)
+            a = a[:, None]  # [b, 1, chunk, 9]
+            dx = px[act][:, :, None] - a[..., 0]  # [b, n_px, chunk]
+            dy = py[act][:, :, None] - a[..., 1]
+            power = gaussian_power(a[..., 2:5], dx, dy)
+            G = fexp(power)
+            raw = a[..., 8] * G
+            alpha = torch.clamp(raw, max=cfg.alpha_clamp)
+            eligible = valid[:, None, :] & (alpha >= cfg.alpha_min) & (power <= 0.0)
+            f = torch.where(eligible, 1.0 - alpha, 1.0)
+            incl = torch.cumprod(f, dim=-1)
+            excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=-1)
+            C_entry = (C[act] / torch.clamp(incl[..., -1], min=1e-30))[..., None]
+            include = eligible & (C_entry * incl >= eps)
+            T_i = C_entry * excl
+            w = torch.where(include, T_i * alpha, 0.0)
+            cta = ct[act][:, :, None, :]  # [b, n_px, 1, 3]
+            v = (cta[..., 0] * a[..., 5] + cta[..., 1] * a[..., 6]
+                 + cta[..., 2] * a[..., 7])
+            pre = torch.cumsum(v * w, dim=-1)
+            tot = pre[..., -1:]
+            U = S[act][..., None] + (tot - pre)
+            dalpha = torch.where(include, v * T_i - (U + ctTT[act][..., None]) / f, 0.0)
+            unclamped = raw < cfg.alpha_clamp
+            dpow = torch.where(unclamped, dalpha * alpha, 0.0)
+            ca, cb, cc = a[..., 2], a[..., 3], a[..., 4]
+            datt = torch.stack(  # [b, chunk, 9]: sums over the tile's pixels
+                [
+                    x.sum(dim=1) for x in (
+                        dpow * (ca * dx + cb * dy),
+                        dpow * (cb * dx + cc * dy),
+                        dpow * (-0.5 * dx * dx),
+                        dpow * (-dx * dy),
+                        dpow * (-0.5 * dy * dy),
+                        w * cta[..., 0],
+                        w * cta[..., 1],
+                        w * cta[..., 2],
+                        torch.where(unclamped, dalpha * G, 0.0),
+                    )
+                ],
+                dim=-1,
+            )
+            dpair[pids[valid]] = datt[valid]
+            C[act] = C_entry[..., 0]
+            S[act] = S[act] + tot[..., 0]
+    return dpair.view(nh, k_slots, 9).sum(dim=1)
+
+
+def stream_backward(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
+                    tiles_x: int, cfg: RenderConfig):
+    """VJP of stream_forward: d_att [NH, 9] f32 for the cotangents ct_img
+    [T, ts², 3] and ct_T [T, ts²] (of the blend's img and T_act), given
+    the forward's inputs and its output fwd_out [T, 8, ts²] (row 4 the
+    exit C, row 5 n_done: the state the chunks replay from).
+
+    Kernel D, csrc/stream_bwd.cu; replaces the TPU kernel
+    gsjax/render/pallas_stream.py::_stream_bwd_kernel. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (there is no
+    fallback)."""
+    if att.device.type == "cpu":
+        return stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T,
+                                     ty0, tiles_x, cfg)
+    if att.device.type != "cuda":
+        raise ValueError(f"stream_backward: unsupported device {att.device}")
+    n_px = cfg.tile_size * cfg.tile_size
+    n_tiles = starts.shape[0] - 1
+    k_slots = cfg.tile_span * cfg.tile_span
+    if att.dim() != 2 or att.shape[1] != 9 or att.dtype != torch.float32:
+        raise ValueError("stream_backward: expected float32 att [NH, 9]")
+    if pid.dtype != torch.int32 or starts.dtype != torch.int32:
+        raise ValueError("stream_backward: pid and starts must be int32")
+    shapes = {"fwd_out": (fwd_out, (n_tiles, FWD_ROWS, n_px)),
+              "ct_img": (ct_img, (n_tiles, n_px, 3)),
+              "ct_T": (ct_T, (n_tiles, n_px))}
+    for name, (x, shape) in shapes.items():
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"stream_backward: expected float32 {name} {shape}")
+    smem = 4 * cfg.chunk * (9 + (n_px // 32) * 9 + 1)
+    if n_px % 32 or n_px > 1024 or smem > 227 * 1024:
+        raise ValueError("stream_backward: tile_size² must be a multiple of 32 "
+                         "up to 1024, and the chunk's partial sums fit 227 KB")
+    att, pid, starts = att.contiguous(), pid.contiguous(), starts.contiguous()
+    fwd_out, ct_img, ct_T = fwd_out.contiguous(), ct_img.contiguous(), ct_T.contiguous()
+    nh = att.shape[0]
+    dpair = torch.zeros((nh * k_slots, 9), dtype=torch.float32, device=att.device)
+    err = kernels.lib().gsjax_stream_backward(
+        att.data_ptr(), pid.data_ptr(), starts.data_ptr(), fwd_out.data_ptr(),
+        ct_img.data_ptr(), ct_T.data_ptr(), n_tiles, ty0, tiles_x,
+        cfg.tile_size, cfg.chunk, k_slots, cfg.alpha_clamp, cfg.alpha_min,
+        cfg.transmittance_eps, dpair.data_ptr(), kernels.stream_ptr(att),
+    )
+    kernels.check(err, "stream_backward")
+    kernels.LAUNCHES["stream_bwd"] += 1
+    return dpair.view(nh, k_slots, 9).sum(dim=1)
+
+
 class _BlendStream(torch.autograd.Function):
     @staticmethod
     def forward(ctx, att, pid, starts, ty0, tiles_x, cfg):
         out = stream_forward(att.detach(), pid, starts, ty0, tiles_x, cfg)
+        ctx.save_for_backward(att, pid, starts, out)
+        ctx.args = (ty0, tiles_x, cfg)
         return out[:, 0:3, :].transpose(1, 2).contiguous(), out[:, 3, :].contiguous()
 
     @staticmethod
     def backward(ctx, ct_img, ct_T):
-        raise NotImplementedError(
-            "the stream blend's gradient is not ported yet: ROADMAP queue 2 "
-            "item D (stream backward kernel D)"
-        )
+        att, pid, starts, out = ctx.saved_tensors
+        if ct_img is None:
+            ct_img = torch.zeros_like(out[:, 0:3, :].transpose(1, 2))
+        if ct_T is None:
+            ct_T = torch.zeros_like(out[:, 3, :])
+        d_att = stream_backward(att.detach(), pid, starts, out, ct_img, ct_T,
+                                *ctx.args)
+        return d_att, None, None, None, None, None
 
 
 def blend_stream(att, pid, starts, ty0: int, tiles_x: int, cfg: RenderConfig):
-    """Stream tile blend: (img [T, ts², 3], T_act [T, ts²]). Forward only —
-    its backward raises until the backward kernel is ported, so no
-    gradient is ever silently wrong."""
+    """Stream tile blend: (img [T, ts², 3], T_act [T, ts²]), differentiable
+    in att (kernel C forward, kernel D backward)."""
     return _BlendStream.apply(att, pid, starts, ty0, tiles_x, cfg)
 
 

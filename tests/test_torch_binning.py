@@ -106,7 +106,7 @@ def test_expand_home_pairs_matches(cases, name):
 def test_build_tile_bins_matches(cases, name):
     c = cases[name]
     p, layout = to_torch(c["ph"], c["lay"])
-    cam = gt.Camera.create(fx=80.0, fy=80.0, width=W, height=H)
+    cam = gt.Camera.create(fx=80.0, fy=80.0, width=W, height=H, device="cpu")
     bt = tbin.build_tile_bins(p, cam, c["cfgt"], anchor="home", layout=layout)
     bj = c["bins"][False]
     n = int(bj.n_pairs)

@@ -37,7 +37,7 @@ def to_torch_p(pj):
 
 def _cam(w=96, h=64):
     kw = dict(fx=80.0, fy=80.0, width=w, height=h)
-    return gsjax.Camera.create(**kw), gt.Camera.create(**kw)
+    return gsjax.Camera.create(**kw), gt.Camera.create(**kw, device="cpu")
 
 
 def _case(name):

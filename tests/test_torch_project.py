@@ -23,17 +23,18 @@ _FIELDS = ("means", "log_scales", "quats", "sh", "opacity_logits")
 
 
 def to_torch(g):
-    return gt.Gaussians.from_numpy(*(np.asarray(getattr(g, f)) for f in _FIELDS))
+    return gt.Gaussians.from_numpy(*(np.asarray(getattr(g, f)) for f in _FIELDS),
+                                   device="cpu")
 
 
 def cams(w=96, h=64):
     kw = dict(fx=80.0, fy=80.0, width=w, height=h)
     return [
-        (gsjax.Camera.create(**kw), gt.Camera.create(**kw)),
+        (gsjax.Camera.create(**kw), gt.Camera.create(**kw, device="cpu")),
         # an off-axis look_at pose: rotated view matrix, splats behind and
         # beside the camera
         (gsjax.Camera.look_at((1.5, -0.5, 2.0), (0.0, 0.2, 6.0), **kw),
-         gt.Camera.look_at((1.5, -0.5, 2.0), (0.0, 0.2, 6.0), **kw)),
+         gt.Camera.look_at((1.5, -0.5, 2.0), (0.0, 0.2, 6.0), **kw, device="cpu")),
     ]
 
 

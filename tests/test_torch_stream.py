@@ -30,12 +30,13 @@ ORBIT_CAM = dict(fx=80.0, fy=80.0, width=W, height=H)
 
 
 def to_torch(g):
-    return gt.Gaussians.from_numpy(*(np.asarray(getattr(g, f)) for f in _FIELDS))
+    return gt.Gaussians.from_numpy(*(np.asarray(getattr(g, f)) for f in _FIELDS),
+                                   device="cpu")
 
 
 def _cams(w=W, h=H):
     kw = dict(fx=80.0, fy=80.0, width=w, height=h)
-    return gsjax.Camera.create(**kw), gt.Camera.create(**kw)
+    return gsjax.Camera.create(**kw), gt.Camera.create(**kw, device="cpu")
 
 
 def _megasplat_scene(rng):
@@ -105,7 +106,8 @@ def test_render_matches_gsjax_xla(ref):
         assert int(aux[k]) == 0, k
     assert int(aux["n_pairs"]) > 0
     # CPU tensors take the kernels' plain versions: no kernel launched
-    assert kernels.LAUNCHES == {"repeat": 0, "expand": 0, "stream_fwd": 0}
+    assert kernels.LAUNCHES == {"repeat": 0, "expand": 0, "stream_fwd": 0,
+                                "stream_bwd": 0}
 
 
 @pytest.mark.parametrize("name", ["fat", "mega"])
@@ -134,7 +136,7 @@ def test_render_orbit_matches_gsjax(ref, tmp_path):
     frames_j = ref["orbit"]
     frames = gt.render_orbit(to_torch(g), n_frames=2, radius=5.0,
                              target=(0.0, 0.0, 6.0), cfg=gt.RenderConfig(chunk=32),
-                             out_dir=str(tmp_path), **ORBIT_CAM)
+                             out_dir=str(tmp_path), **ORBIT_CAM, device="cpu")
     assert frames.shape == frames_j.shape == (2, H, W, 3)
     assert np.abs(frames - frames_j).max() < 2e-5
     assert np.abs(frames[0] - frames[1]).max() > 1e-2  # the camera moved

@@ -6,51 +6,67 @@ and check them.
 
 Phases (any failure exits non-zero; there is no CPU path):
   1. device  — require CUDA; print the card's name and power limit;
-  2. build   — compile the CUDA kernels from gsjax_torch/csrc;
+  2. build   — compile the six CUDA kernels from gsjax_torch/csrc;
   3. scene   — bonsai_like(n=1,200,000, seed=0, sh_degree=0) on cuda:0;
   4. cameras — bench.py's 1080p orbit: 30 views over 30° of azimuth;
-  5. config  — stream backend, chunk 128, fat_cap 2,342,912,
-               fat_live_cap 1,617,920 (the copy budgets an autotune pass
-               measured for this orbit; autotune is not ported yet);
+  5. config  — chunk 128, fat_cap 2,342,912, fat_live_cap 1,617,920 (the
+               copy budgets an autotune pass measured for this orbit;
+               autotune is not ported yet), backend stream — and the same
+               with backend "pallas", the flat slot-stream path;
   6. kernels — on view 0, each kernel against its plain PyTorch version
                at the path's shapes: repeat (A) and expand (B) bit-equal,
                the stream blend (C) within 2e-5 at the 99.9th percentile;
-               times of both; then small scenes with the cases the
-               bonsai view lacks (empty tiles, an image that is no
-               multiple of the tile size, counted fat overflow), the
-               card's kernel path against the CPU's plain path;
+               times of both;
+  6c. kernel E — the flat blend on view 0's slot stream against its plain
+               version with C's bounds, and against C on the same pairs
+               (max |Δ|, bit-equal or not); times, bound, slot counts;
+  6b. edges  — small scenes with the cases the bonsai view lacks (empty
+               tiles, an image that is no multiple of the tile size,
+               counted fat overflow), both backends: the card's kernel
+               path against the CPU's plain path;
   7. serve   — zero the launch counters, render views 0-3 through
-               render_trajectory, read the counters: every kernel must
-               have launched once per frame; frames finite; every
+               render_trajectory, read the counters: A, B and C launched
+               once per frame, no other kernel; frames finite; every
                overflow counter 0; view 0's mean(img²) = 0.41342 ± 0.1%
                (the reference's black-target loss of this view);
-  8. timing  — median ms/frame and the per-stage split;
+  7b. serve flat — the same through backend "pallas": A, B and E once per
+               frame, no other kernel;
+  8. timing  — median ms/frame and the per-stage split, both backends;
   9. kernel D — on view 0 at the path's shapes, with the cotangents of a
                real loss (the perturbed scene against the clean scene's
                render), the backward kernel against its plain version:
                per attribute column p99.9 |Δ|/peak ≤ 1e-4 and max ≤ 1e-1
                (in-chunk products round differently, so a pixel's include
                set may flip near eps), two launches bit-equal; times of
-               both; then the small scenes of phase 6 with a background
-               (so ct_T ≠ 0): every field's gradient on the card against
-               the CPU's plain path;
+               both;
+  9c. kernel F — the flat backward against its plain version with the
+               same cotangents and bounds, two launches bit-equal; then
+               its gradient after the slot gather's VJP against D's;
+  9b. gradients — the small scenes of phase 6b with a background (so
+               ct_T ≠ 0), both backends: every field's gradient on the
+               card against the CPU's plain path;
  10. train   — gsjax_torch.train on the bonsai 1080p orbit: perturb(g)
                trained toward the port's renders of the clean scene, one
                fwd + bwd + Adam(1e-3) step at each of views 0-3, then 8 at
                view 0; zero the launch counters before, read them after:
-               kernels A-D once per step; overflow 0, gradients finite,
-               parameters changed, view 0's first loss within 5% of
-               0.00031 (bench.py's loss0 for this perturbation), the loss
-               at view 0 falling; median ms/step, its split (forward,
-               backward, optimizer) and peak device memory.
-Prints the kernels' JSON line (A-D, each with its time, its plain
-version's, its bound and its launches on the training path), then the
+               kernels A-D once per step, E and F never; overflow 0,
+               gradients finite, parameters changed, view 0's first loss
+               within 5% of 0.00031 (bench.py's loss0 for this
+               perturbation), the loss at view 0 falling; median ms/step,
+               its split (forward, backward, optimizer) and peak device
+               memory;
+ 10b. train flat — the same through backend "pallas", views 0-3 then 4
+               steps at view 0: A, B, E and F once per step, C and D never.
+Prints the kernels' JSON line (A-F, each with its time, its plain
+version's, its bound and its launches on its training path), then the
 card's name and power limit, then the result line {"ok": true, "device":
 {...}} last.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -67,6 +83,10 @@ BLACK_LOSS0 = 0.41342  # mean(img²) of orbit view 0 in the reference
 TRAIN_LOSS0 = 0.00031  # bench.py's loss0 for perturb(g) at view 0 (BENCH_r05.json)
 SERVE_VIEWS = 4
 TRAIN_VIEWS, FIXED_STEPS = 4, 8
+FLAT_FIXED_STEPS = 4
+# the kernels each path launches (LAUNCHES keys); serving runs no *_bwd
+PATH_KERNELS = {"stream": ("repeat", "expand", "stream_fwd", "stream_bwd"),
+                "pallas": ("repeat", "expand", "slots_fwd", "slots_bwd")}
 DEVICE = "cuda:0"
 
 # the card's peaks (H100 SXM data sheet) and the work per unit, counted
@@ -80,6 +100,9 @@ OPS_PER_SLOT_A = 130  # ~20-step binary search + block decode + the cull
 OPS_PER_CANDIDATE_B = 60  # window tests + the four-edge quadratic minimum
 OPS_PER_PAIR_PIXEL_C = 45  # quadratic 9, fexp 20, α 2, tests 2, C 3, rgb 6, …
 OPS_PER_PAIR_PIXEL_D = 85  # C's 39 up to the transmittance + v, U, dα, 9 grads, 9 sums
+# E and F run C's and D's per-pair math on the slot stream
+OPS_PER_PAIR_PIXEL_E, OPS_PER_PAIR_PIXEL_F = OPS_PER_PAIR_PIXEL_C, OPS_PER_PAIR_PIXEL_D
+ATT_BYTES = 9 * 4  # one pair's attribute row
 
 
 RAW_FIELDS = ("means", "log_scales", "quats", "sh", "opacity_logits")
@@ -145,6 +168,38 @@ def replayed_pair_pixels(out, starts, cfg) -> int:
     return int(torch.minimum(counts, n_done * cfg.chunk).sum()) * cfg.tile_size ** 2
 
 
+def blend_diff(out_k, out_p):
+    """A blend kernel's output against its plain version's: (max |Δ| and
+    p99.9 |Δ| over img and T_act, the tiles whose n_done differs, max |Δ|
+    of the exit C)."""
+    import torch
+
+    d = (out_k[:, 0:4] - out_p[:, 0:4]).abs()
+    p999 = float(torch.quantile(d.flatten()[:: max(1, d.numel() // 8_000_000)], 0.999))
+    return (float(d.max()), p999, int((out_k[:, 5, 0] != out_p[:, 5, 0]).sum()),
+            float((out_k[:, 4] - out_p[:, 4]).abs().max()))
+
+
+GRAD_COLS = ("mx", "my", "ca", "cb", "cc", "r", "g", "b", "op")
+
+
+def grad_diff(dk, dp):
+    """A gradient [rows, 9] against its reference, over the rows some
+    replayed pair reached (the rest are 0 in both): (per column p99.9
+    |Δ|/peak, per column max |Δ|/peak, max |Δ|, rows)."""
+    import torch
+
+    diff = (dk - dp).abs()
+    peak = dp.abs().amax(dim=0).clamp(min=1e-30)
+    rel = (diff / peak)[(dp != 0).any(dim=1) | (dk != 0).any(dim=1)]
+    p999 = torch.stack([torch.quantile(rel[:, c], 0.999) for c in range(9)])
+    return p999, rel.amax(dim=0), float(diff.max()), rel.shape[0]
+
+
+def fmt_cols(x) -> dict:
+    return dict(zip(GRAD_COLS, [f"{v:.2e}" for v in x.tolist()]))
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -166,12 +221,27 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def check_launches(launches, backend: str, n: int, train: bool) -> None:
+    """Every kernel of the backend's path (its forward ones when serving)
+    launched n times, every other kernel never."""
+    what = "training steps" if train else "frames"
+    for name, count in launches.items():
+        on_path = name in PATH_KERNELS[backend] and (train or not name.endswith("_bwd"))
+        want = n if on_path else 0
+        check(count == want, f"{backend}: kernel {name} launched {count} times over "
+              f"{n} {what} (want {want})")
+
+
 def staged_render(g, cam, cfg):
     """pipeline.render, one stage at a time with a synchronize after
-    each: (img, aux, {stage: ms})."""
+    each: (img, overflow and pair counters, {stage: ms}, (p, ph, layout,
+    bins)). The flat backend's slot gather is a stage of its own."""
     import torch
 
+    from gsjax_torch.render import flat
     from gsjax_torch.render.binning import build_tile_bins
+    from gsjax_torch.render.composite import (assemble_band, att_table,
+                                              clipped_pair_stream)
     from gsjax_torch.render.homesort import build_home_layout
     from gsjax_torch.render.project import project
     from gsjax_torch.render.stream import composite_tiles_stream
@@ -193,9 +263,99 @@ def staged_render(g, cam, cfg):
     lap("home_layout")
     bins = build_tile_bins(ph, cam, cfg, anchor="home", layout=layout)
     lap("bins_sort")
-    img, aux = composite_tiles_stream(ph, layout, bins, cam, cfg)
+    if cfg.backend == "stream":
+        img, aux = composite_tiles_stream(ph, layout, bins, cam, cfg)
+    else:
+        pid, starts, n_dropped = clipped_pair_stream(bins, cfg)
+        att_al, tile_of, cbase = flat.chunked_pair_attrs(
+            att_table(ph), pid, starts, cfg, cfg.tile_span ** 2)
+        lap("slot_gather")
+        img_t, T_t = flat.blend_slots(att_al, starts, cbase, tile_of, bins.ty0,
+                                      bins.tiles_x, bins.band_rows, cfg)
+        img, _ = assemble_band(img_t, T_t, bins, cfg)
+        aux = {"n_pairs": bins.n_pairs, "n_pair_overflow": n_dropped,
+               "n_fat_overflow": layout.n_fat_overflow}
     lap("blend")
     return img[: cam.height, : cam.width], aux, ms, (p, ph, layout, bins)
+
+
+def train_phase(g, g_train, cams, cfg, order, card) -> dict:
+    """Train g_train toward g's renders of `cams` through the user's
+    entry points (gsjax_torch.train.make_step_fn), one step per view in
+    `order`, with the launch counters zeroed before and read after; check
+    the launches (the backend's kernels once per step, no other kernel),
+    overflow, gradients, parameters and losses; then time the step's
+    split on three more steps at view 0. Returns the run's numbers."""
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import kernels
+    from gsjax_torch import train as gtrain
+
+    backend = cfg.backend
+    with torch.no_grad():
+        targets = [gt.render(g, c, cfg) for c in cams]
+        for v, c in enumerate(cams):
+            aux = gt.render(g_train, c, cfg, return_aux=True)[1]
+            ovf = {k: int(aux[k]) for k in aux if k.endswith("overflow")}
+            check(all(x == 0 for x in ovf.values()),
+                  f"train view {v} ({backend}): overflow {ovf}")
+    params0 = {n: t.detach().clone() for n, t in g_train.named_parameters()}
+    opt = torch.optim.Adam(g_train.parameters(), lr=1e-3)  # bench.py: optax.adam(1e-3)
+    steps = [gtrain.make_step_fn(c, cfg, opt) for c in cams]
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    for v in order:
+        t0 = time.perf_counter()
+        loss = steps[v](g_train, targets[v])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"# train ({backend}): {len(order)} steps (views {order}); launches "
+          f"{launches}; losses {[f'{x:.6f}' for x in losses]}")
+    check_launches(launches, backend, len(order), train=True)
+    for n_, t in g_train.named_parameters():
+        check(t.grad is not None and bool(torch.isfinite(t.grad).all()),
+              f"train ({backend}): gradient of {n_} missing or non-finite")
+        check(not torch.equal(t.detach(), params0[n_]),
+              f"train ({backend}): {n_} did not change")
+    rel0 = abs(losses[0] - TRAIN_LOSS0) / TRAIN_LOSS0
+    print(f"# train ({backend}): view 0's first loss {losses[0]:.7f} (bench.py's "
+          f"{TRAIN_LOSS0}, rel diff {rel0:.2e}); after the fixed steps {losses[-1]:.7f}")
+    check(rel0 <= 0.05, f"train ({backend}): view 0's first loss {losses[0]} not "
+          f"within 5% of {TRAIN_LOSS0}")
+    check(losses[-1] < losses[0], f"train ({backend}): view 0's loss did not fall "
+          f"({losses[0]} -> {losses[-1]})")
+
+    # the step's split, on three more steps at view 0
+    split_ms = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((gt.render(g_train, cams[0], cfg) - targets[0]) ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, (a, b) in zip(split_ms, ((t0, t1), (t1, t2), (t2, t3))):
+            split_ms[k].append((b - a) * 1e3)
+    split_t = {k: round(statistics.median(x), 3) for k, x in split_ms.items()}
+    print(f"# train timing ({backend}) on {card}: median "
+          f"{statistics.median(step_ms):.3f} ms per fwd + bwd + Adam step over "
+          f"{len(step_ms)} steps (host clock, synchronize on both sides; all "
+          f"{[round(x, 2) for x in step_ms]}); split (median of 3 staged steps, "
+          f"ms) {split_t}; peak device memory {peak_gb:.2f} GiB")
+    return dict(launches=launches, losses=losses, step_ms=step_ms,
+                split_ms=split_ms, peak_gib=peak_gb)
 
 
 def main() -> int:
@@ -213,7 +373,7 @@ def main() -> int:
     from gsjax_torch import kernels
     from gsjax_torch.bench.run import FAT_CAP, LIVE_CAP, orbit_cameras, perturb
     from gsjax_torch.bench.synth import bonsai_like
-    from gsjax_torch.render import binning, homesort, stream
+    from gsjax_torch.render import binning, flat, homesort, stream
     from gsjax_torch.render.composite import (assemble_band, att_table,
                                               clipped_pair_stream)
 
@@ -241,6 +401,8 @@ def main() -> int:
     cams = orbit_cameras(30, WIDTH, HEIGHT, device=dev)
     cfg = gt.RenderConfig(backend="stream", chunk=128, fat_cap=FAT_CAP,
                           fat_live_cap=LIVE_CAP)
+    cfg_flat = dataclasses.replace(cfg, backend="pallas")
+    configs = {"stream": cfg, "pallas": cfg_flat}
     torch.cuda.synchronize()
     print(f"# scene: {N_SPLATS} splats, {len(cams)} orbit views at "
           f"{WIDTH}x{HEIGHT}, set-up {time.perf_counter() - t0:.2f} s")
@@ -304,11 +466,7 @@ def main() -> int:
         c_args = (att, pid, starts, 0, tiles_x, cfg)
         out_k = stream.stream_forward(*c_args)
         out_p = stream.stream_forward_plain(*c_args)
-        d = (out_k[:, 0:4] - out_p[:, 0:4]).abs()
-        err_c = float(d.max())
-        p999 = float(torch.quantile(d.flatten()[:: max(1, d.numel() // 8_000_000)], 0.999))
-        n_done_diff = int((out_k[:, 5, 0] != out_p[:, 5, 0]).sum())
-        c_diff = float((out_k[:, 4] - out_p[:, 4]).abs().max())
+        err_c, p999, n_done_diff, c_diff = blend_diff(out_k, out_p)
         counts = starts[1:] - starts[:-1]
         pp_c = replayed_pair_pixels(out_k, starts, cfg)
         bound_c = bound(nbytes(att, pid, starts, out_k), OPS_PER_PAIR_PIXEL_C * pp_c)
@@ -333,89 +491,137 @@ def main() -> int:
             plain_ms=cuda_ms(lambda: stream.stream_forward_plain(*c_args), 2),
             bound_ms=bound_c[0], bound_by=bound_c[1], library_ms=None,
         ))
-        del src18, fb, fbe, tail_k, tail_p, keys_k, keys_p, cols
-        del tile_k, tile_p, pid_k, pid_p, out_k, out_p, d, p, ph, layout, bins
+
+        # 6c. kernel E: the flat blend over view 0's slot stream
+        att_al, tile_of, cbase = flat.chunked_pair_attrs(att, pid, starts, cfg_flat,
+                                                         cfg.tile_span ** 2)
+        e_args = (att_al, starts, cbase, tile_of, 0, tiles_x, tiles_y, cfg_flat)
+        out_e = flat.slots_forward(*e_args)
+        out_ep = flat.slots_forward_plain(*e_args)
+        err_e, p999, n_done_diff, c_diff = blend_diff(out_e, out_ep)
+        e_vs_c = float((out_e - out_k).abs().max())
+        e_equals_c = torch.equal(out_e, out_k)
+        pp_e = replayed_pair_pixels(out_e, starts, cfg)
+        # the slots up to n_done in each tile: their pairs' rows
+        bound_e = bound(pp_e // cfg.tile_size ** 2 * ATT_BYTES + nbytes(starts, cbase, out_e),
+                        OPS_PER_PAIR_PIXEL_E * pp_e)
+        ms_e = cuda_ms(lambda: flat.slots_forward(*e_args), 20)
+        ms_c = cuda_ms(lambda: stream.stream_forward(*c_args), 20)
+        print(f"# E slot blend: {att_al.shape[0]} slots ({int(cbase[-1])} live, "
+              f"{int(out_e[:, 5, 0].sum())} run), att_al {nbytes(att_al) / 1e6:.1f} MB; "
+              f"vs plain |img, T_act| diff p99.9 {p999:.3e} max {err_e:.3e}; C max "
+              f"diff {c_diff:.3e}; n_done differs on {n_done_diff} tiles; against "
+              f"kernel C on the same pairs max |Δ| {e_vs_c:.3e}, "
+              f"{'bit-equal' if e_equals_c else 'NOT bit-equal'}; E {ms_e:.3f} ms, "
+              f"C {ms_c:.3f} ms (same call); bound {bound_e[0]:.3f} ms ({bound_e[1]})")
+        check(p999 <= 2e-5, f"kernel E: p99.9 |diff| {p999} > 2e-5")
+        check(err_e <= 5e-3, f"kernel E: max |diff| {err_e} > 5e-3")
+        check(n_done_diff <= max(8, tiles_x * tiles_y // 1000),
+              f"kernel E: n_done differs on {n_done_diff} tiles")
+        results.append(dict(
+            name="slots_forward", route="cuda",
+            source="gsjax_torch/csrc/slots_fwd.cu",
+            replaces="gsjax/render/pallas_flat.py:122",
+            max_abs_err=err_e, ms=ms_e,
+            plain_ms=cuda_ms(lambda: flat.slots_forward_plain(*e_args), 2),
+            bound_ms=bound_e[0], bound_by=bound_e[1], library_ms=None,
+        ))
+        del src18, fb, fbe, tail_k, tail_p, keys_k, keys_p, cols, att_al, out_e, out_ep
+        del e_args, tile_of, cbase
+        del tile_k, tile_p, pid_k, pid_p, out_k, out_p, p, ph, layout, bins
 
         # 6b. edge cases the bonsai view lacks, at the CPU tests' small
         # shapes: the card's kernel path against the CPU's plain path on
-        # the same raw parameters
-        for name, scene_kw, cfg_kw, (w, h) in EDGE_CASES:
+        # the same raw parameters, both backends
+        for (name, scene_kw, cfg_kw, (w, h)), backend in itertools.product(
+                EDGE_CASES, configs):
             gc = small_scene(np.random.default_rng(7), **scene_kw)
             gg = gt.Gaussians.from_numpy(
                 *(getattr(gc, f).detach().numpy() for f in RAW_FIELDS), device=dev
             )
             cam = gt.Camera.create(fx=80.0, fy=80.0, width=w, height=h, device="cpu")
-            cfg_e = gt.RenderConfig(backend="stream", chunk=32, **cfg_kw)
+            cfg_e = gt.RenderConfig(backend=backend, chunk=32, **cfg_kw)
             img_c, aux_c = gt.render(gc, cam, cfg_e, return_aux=True)
             img_g, aux_g = gt.render(gg, cam, cfg_e, return_aux=True)
             d = (img_g.cpu() - img_c).abs()
             counters = {k: (int(aux_g[k]), int(aux_c[k])) for k in
                         ("n_pairs", "n_fat_overflow", "n_pair_overflow")}
-            print(f"# edge case {name} {w}x{h}: |card - cpu| p99.9 "
+            print(f"# edge case {name} {w}x{h} ({backend}): |card - cpu| p99.9 "
                   f"{float(torch.quantile(d.flatten(), 0.999)):.3e} max "
                   f"{float(d.max()):.3e}; (card, cpu) {counters}")
             check(float(torch.quantile(d.flatten(), 0.999)) <= 2e-5 and
-                  float(d.max()) <= 5e-3, f"edge case {name}: card vs cpu {float(d.max())}")
+                  float(d.max()) <= 5e-3,
+                  f"edge case {name} ({backend}): card vs cpu {float(d.max())}")
             check(all(a == b for a, b in counters.values()),
-                  f"edge case {name}: counters differ {counters}")
+                  f"edge case {name} ({backend}): counters differ {counters}")
             if name == "overflow":
                 check(counters["n_fat_overflow"][0] > 0, "overflow not counted")
 
-    # 7. serve: the main path through the user's entry point ---------------
-    gt.render_trajectory(g, cams[:1], cfg)  # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    frames = gt.render_trajectory(g, cams[:SERVE_VIEWS], cfg)
-    serve_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    print(f"# serve: render_trajectory({SERVE_VIEWS} views) {serve_s * 1e3:.1f} ms "
-          f"({serve_s * 1e3 / SERVE_VIEWS:.1f} ms/frame incl. device-to-host "
-          f"copy); launches {launches}")
-    for name, n in launches.items():
-        want = 0 if name == "stream_bwd" else SERVE_VIEWS  # serving takes no gradient
-        check(n == want, f"kernel {name} launched {n} times over "
-              f"{SERVE_VIEWS} frames (want {want})")
-    check(frames.shape == (SERVE_VIEWS, HEIGHT, WIDTH, 3), f"frames {frames.shape}")
-    check(bool(np.isfinite(frames).all()), "non-finite pixels")
-    loss0 = float(np.mean(frames[0].astype(np.float64) ** 2))
-    rel = abs(loss0 - BLACK_LOSS0) / BLACK_LOSS0
-    print(f"# view 0 mean(img^2) = {loss0:.6f} (reference {BLACK_LOSS0}, "
-          f"rel diff {rel:.2e})")
-    check(rel <= 1e-3, f"view 0 mean(img^2) {loss0} not within 0.1% of {BLACK_LOSS0}")
+    # 7 / 7b. serve: the main path through the user's entry point, one
+    # backend at a time ---------------------------------------------------
+    frames, loss0 = {}, {}
+    for backend, cfg_b in configs.items():
+        gt.render_trajectory(g, cams[:1], cfg_b)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        frames[backend] = gt.render_trajectory(g, cams[:SERVE_VIEWS], cfg_b)
+        serve_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        print(f"# serve ({backend}): render_trajectory({SERVE_VIEWS} views) "
+              f"{serve_s * 1e3:.1f} ms ({serve_s * 1e3 / SERVE_VIEWS:.1f} ms/frame incl. "
+              f"device-to-host copy); launches {launches}")
+        check_launches(launches, backend, SERVE_VIEWS, train=False)
+        fr = frames[backend]
+        check(fr.shape == (SERVE_VIEWS, HEIGHT, WIDTH, 3), f"frames {fr.shape}")
+        check(bool(np.isfinite(fr).all()), f"{backend}: non-finite pixels")
+        loss0[backend] = float(np.mean(fr[0].astype(np.float64) ** 2))
+        rel = abs(loss0[backend] - BLACK_LOSS0) / BLACK_LOSS0
+        print(f"# ({backend}) view 0 mean(img^2) = {loss0[backend]:.6f} (reference "
+              f"{BLACK_LOSS0}, rel diff {rel:.2e})")
+        check(rel <= 1e-3, f"{backend}: view 0 mean(img^2) {loss0[backend]} not "
+              f"within 0.1% of {BLACK_LOSS0}")
+    d_frames = float(np.abs(frames["pallas"] - frames["stream"]).max())
+    print(f"# serve: flat frames against stream frames max |Δ| {d_frames:.3e}, "
+          f"{'bit-equal' if np.array_equal(frames['pallas'], frames['stream']) else 'NOT bit-equal'}")
     os.makedirs(OUT_DIR, exist_ok=True)
     from gsjax_torch.utils.image import write_png
 
-    write_png(os.path.join(OUT_DIR, "view0.png"), frames[0])
+    write_png(os.path.join(OUT_DIR, "view0.png"), frames["stream"][0])
+    del frames
 
-    # 8. timing ------------------------------------------------------------
-    frame_ms, stages = [], {}
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():
-        for rep in range(2):
-            for v in range(SERVE_VIEWS):
-                cam = cams[v].to(dev)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                gt.render(g, cam, cfg)
-                torch.cuda.synchronize()
-                frame_ms.append((time.perf_counter() - t0) * 1e3)
-                img, aux, ms, _ = staged_render(g, cam, cfg)
-                for k, x in ms.items():
-                    stages.setdefault(k, []).append(x)
-                if rep == 0:
-                    ovf = {k: int(aux[k]) for k in aux if k.startswith("n_") and
-                           k.endswith("overflow")}
-                    check(all(x == 0 for x in ovf.values()),
-                          f"view {v}: overflow {ovf}")
-                    check(bool(torch.isfinite(img).all()), f"view {v}: non-finite")
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    split = {k: round(statistics.median(x), 3) for k, x in stages.items()}
-    print(f"# timing on {card}: median {statistics.median(frame_ms):.3f} ms/frame "
-          f"over {len(frame_ms)} renders of views 0-{SERVE_VIEWS - 1} "
-          f"(render() with synchronize); stage split (median ms) {split}; "
-          f"peak device memory {peak_gb:.2f} GiB; overflow counters 0; "
-          f"pairs view 0 {int(aux0['n_pairs'])}")
+    # 8. timing, both backends ---------------------------------------------
+    frame_ms, stages, peak_gb = {}, {}, {}
+    for backend, cfg_b in configs.items():
+        frame_ms[backend], stages[backend] = [], {}
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            for rep in range(2):
+                for v in range(SERVE_VIEWS):
+                    cam = cams[v].to(dev)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    gt.render(g, cam, cfg_b)
+                    torch.cuda.synchronize()
+                    frame_ms[backend].append((time.perf_counter() - t0) * 1e3)
+                    img, aux, ms, _ = staged_render(g, cam, cfg_b)
+                    for k, x in ms.items():
+                        stages[backend].setdefault(k, []).append(x)
+                    if rep == 0:
+                        ovf = {k: int(aux[k]) for k in aux if k.startswith("n_") and
+                               k.endswith("overflow")}
+                        check(all(x == 0 for x in ovf.values()),
+                              f"{backend} view {v}: overflow {ovf}")
+                        check(bool(torch.isfinite(img).all()),
+                              f"{backend} view {v}: non-finite")
+        peak_gb[backend] = torch.cuda.max_memory_allocated() / 2**30
+        split = {k: round(statistics.median(x), 3) for k, x in stages[backend].items()}
+        print(f"# timing ({backend}) on {card}: median "
+              f"{statistics.median(frame_ms[backend]):.3f} ms/frame over "
+              f"{len(frame_ms[backend])} renders of views 0-{SERVE_VIEWS - 1} "
+              f"(render() with synchronize); stage split (median ms) {split}; "
+              f"peak device memory {peak_gb[backend]:.2f} GiB; overflow counters 0; "
+              f"pairs view 0 {int(aux0['n_pairs'])}")
 
     # 9. kernel D vs its plain version on view 0 ----------------------------
     # the cotangents of a real loss: the perturbed scene against the clean
@@ -440,21 +646,13 @@ def main() -> int:
         dp = stream.stream_backward_plain(*d_args)
         torch.cuda.synchronize()
         check(torch.equal(dk, dk2), "kernel D: two launches differ (not deterministic)")
-        diff = (dk - dp).abs()
-        peak = dp.abs().amax(dim=0).clamp(min=1e-30)
-        # the home rows some replayed pair reached (the rest are 0 in both)
-        rel = (diff / peak)[(dp != 0).any(dim=1) | (dk != 0).any(dim=1)]
-        p999 = torch.stack([torch.quantile(rel[:, c], 0.999) for c in range(9)])
-        err_d = float(diff.max())
-        names = ("mx", "my", "ca", "cb", "cc", "r", "g", "b", "op")
+        p999, rel_max, err_d, n_rows = grad_diff(dk, dp)
         print(f"# D stream backward: loss {float(loss):.6f}; per column "
-              f"p99.9 |Δ|/peak {dict(zip(names, [f'{x:.2e}' for x in p999.tolist()]))}, "
-              f"max {dict(zip(names, [f'{x:.2e}' for x in rel.amax(dim=0).tolist()]))}; "
-              f"max |Δ| {err_d:.3e} over {rel.shape[0]} home rows with a "
+              f"p99.9 |Δ|/peak {fmt_cols(p999)}, max {fmt_cols(rel_max)}; "
+              f"max |Δ| {err_d:.3e} over {n_rows} home rows with a "
               f"gradient; two launches bit-equal")
         check(bool((p999 <= 1e-4).all()), f"kernel D: p99.9 |Δ|/peak {p999.tolist()} > 1e-4")
-        check(bool((rel.amax(dim=0) <= 1e-1).all()),
-              f"kernel D: max |Δ|/peak {rel.amax(dim=0).tolist()} > 1e-1")
+        check(bool((rel_max <= 1e-1).all()), f"kernel D: max |Δ|/peak {rel_max.tolist()} > 1e-1")
         check(bool(torch.isfinite(dk).all()), "kernel D: non-finite gradients")
         pp_d = replayed_pair_pixels(out, starts, cfg)
         bound_d = bound(nbytes(att, pid, starts, out, ct_img, ct_T, dk),
@@ -475,19 +673,72 @@ def main() -> int:
         print(f"# D: {pp_d} pair-pixels replayed; of its wrapper's time, "
               f"zeroing the per-pair buffer [{nh * k_slots}, 9] and summing its "
               f"classes take {buf_ms:.3f} ms")
+
+        # 9c. kernel F: the flat backward with the same cotangents, from
+        # kernel E's exit state
+        att_al, tile_of, cbase = flat.chunked_pair_attrs(att, pid, starts, cfg_flat, k_slots)
+        out_e = flat.slots_forward(att_al, starts, cbase, tile_of, 0, tiles_x, tiles_y,
+                                   cfg_flat)
+        f_args = (att_al, starts, cbase, tile_of, 0, out_e, ct_img, ct_T, tiles_x,
+                  tiles_y, cfg_flat)
+        fk = flat.slots_backward(*f_args)
+        fk2 = flat.slots_backward(*f_args)
+        fp = flat.slots_backward_plain(*f_args)
+        torch.cuda.synchronize()
+        check(torch.equal(fk, fk2), "kernel F: two launches differ (not deterministic)")
+        p999, rel_max, err_f, n_rows = grad_diff(fk.view(-1, 9), fp.view(-1, 9))
+        print(f"# F slot backward: E's exit state "
+              f"{'bit-equal to' if torch.equal(out_e, out) else 'NOT bit-equal to'} "
+              f"C's; per column p99.9 |Δ|/peak {fmt_cols(p999)}, max "
+              f"{fmt_cols(rel_max)}; max |Δ| {err_f:.3e} over {n_rows} slot rows "
+              f"with a gradient; two launches bit-equal")
+        check(bool((p999 <= 1e-4).all()), f"kernel F: p99.9 |Δ|/peak {p999.tolist()} > 1e-4")
+        check(bool((rel_max <= 1e-1).all()), f"kernel F: max |Δ|/peak {rel_max.tolist()} > 1e-1")
+        check(bool(torch.isfinite(fk).all()), "kernel F: non-finite gradients")
+        # F's slot gradients back to home rows through the gather's VJP,
+        # against kernel D's home-row gradients
+        with torch.enable_grad():
+            att_g = att.detach().requires_grad_()
+            (d_home,) = torch.autograd.grad(
+                flat.chunked_pair_attrs(att_g, pid, starts, cfg_flat, k_slots)[0], att_g, fk)
+        p999, rel_max, err_fd, _ = grad_diff(d_home, dk)
+        print(f"# F after the slot gather's VJP against D: max |Δ| {err_fd:.3e}, "
+              f"{'bit-equal' if torch.equal(d_home, dk) else 'NOT bit-equal'}; per "
+              f"column p99.9 |Δ|/peak {fmt_cols(p999)}")
+        check(bool((p999 <= 1e-4).all()) and bool((rel_max <= 1e-1).all()),
+              f"flat home-row gradients differ from D's: {p999.tolist()}, {rel_max.tolist()}")
+        pp_f = replayed_pair_pixels(out_e, starts, cfg)
+        bound_f = bound(pp_f // cfg.tile_size ** 2 * ATT_BYTES
+                        + nbytes(starts, cbase, out_e, ct_img, ct_T, fk),
+                        OPS_PER_PAIR_PIXEL_F * pp_f)
+        ms_f = cuda_ms(lambda: flat.slots_backward(*f_args), 10)
+        print(f"# F: {pp_f} pair-pixels replayed; F {ms_f:.3f} ms, D "
+              f"{results[-1]['ms']:.3f} ms; bound {bound_f[0]:.3f} ms ({bound_f[1]})")
+        results.append(dict(
+            name="slots_backward", route="cuda",
+            source="gsjax_torch/csrc/slots_bwd.cu",
+            replaces="gsjax/render/pallas_flat.py:195",
+            max_abs_err=err_f, ms=ms_f,
+            plain_ms=cuda_ms(lambda: flat.slots_backward_plain(*f_args), 2),
+            bound_ms=bound_f[0], bound_by=bound_f[1], library_ms=None,
+        ))
     del p, ph, layout, bins, att, pid, starts, out, img_t, T_t, img, dk, dk2, dp
-    del diff, rel, ct_img, ct_T
+    del ct_img, ct_T, att_al, out_e, fk, fk2, fp, d_home, att_g, f_args, d_args
+    del tile_of, cbase
+    del g_train, target0
 
     # 9b. gradients on the small scenes: card against the CPU's plain path,
-    # with a background so the transmittance's cotangent is not zero
-    for name, scene_kw, cfg_kw, (w, h) in EDGE_CASES[:3]:
+    # with a background so the transmittance's cotangent is not zero, both
+    # backends
+    for (name, scene_kw, cfg_kw, (w, h)), backend in itertools.product(
+            EDGE_CASES[:3], configs):
         grads = []
         for device in ("cpu", dev):
             gc = small_scene(np.random.default_rng(7), **scene_kw)
             gc = gt.Gaussians.from_numpy(
                 *(getattr(gc, f).detach().numpy() for f in RAW_FIELDS), device=device)
             cam = gt.Camera.create(fx=80.0, fy=80.0, width=w, height=h, device=device)
-            cfg_e = gt.RenderConfig(backend="stream", chunk=32,
+            cfg_e = gt.RenderConfig(backend=backend, chunk=32,
                                     background=(0.2, 0.3, 0.5), **cfg_kw)
             tgt = torch.from_numpy(np.random.default_rng(8).uniform(
                 0, 1, (h, w, 3)).astype(np.float32)).to(device)
@@ -500,92 +751,36 @@ def main() -> int:
             worst[f] = (float(torch.quantile(rel.flatten(), 0.99)), float(rel.max()))
             check(worst[f][0] <= 5e-3 and worst[f][1] <= 1e-1 and
                   bool(torch.isfinite(b).all()),
-                  f"gradients {name}.{f}: card vs cpu p99 / max rel {worst[f]}")
-        print(f"# gradients {name} {w}x{h}: card vs cpu (p99, max) |Δ|/peak "
+                  f"gradients {name}.{f} ({backend}): card vs cpu p99 / max rel {worst[f]}")
+        print(f"# gradients {name} {w}x{h} ({backend}): card vs cpu (p99, max) |Δ|/peak "
               f"{ {f: (f'{x:.1e}', f'{y:.1e}') for f, (x, y) in worst.items()} }")
 
-    # 10. train: the training path through the user's entry points ---------
-    from gsjax_torch import train as gtrain
-
+    # 10 / 10b. train: the training path through the user's entry points,
+    # one backend at a time ------------------------------------------------
     cams_t = [c.to(dev) for c in cams[:TRAIN_VIEWS]]
-    with torch.no_grad():
-        targets = [gt.render(g, c, cfg) for c in cams_t]
-        for v, c in enumerate(cams_t):
-            aux = gt.render(g_train, c, cfg, return_aux=True)[1]
-            ovf = {k: int(aux[k]) for k in aux if k.endswith("overflow")}
-            check(all(x == 0 for x in ovf.values()), f"train view {v}: overflow {ovf}")
-    params0 = {n: t.detach().clone() for n, t in g_train.named_parameters()}
-    opt = torch.optim.Adam(g_train.parameters(), lr=1e-3)  # bench.py: optax.adam(1e-3)
-    steps = [gtrain.make_step_fn(c, cfg, opt) for c in cams_t]
-    order = list(range(TRAIN_VIEWS)) + [0] * FIXED_STEPS
-    losses, step_ms = [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    for v in order:
-        t0 = time.perf_counter()
-        loss = steps[v](g_train, targets[v])
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
-    launches = dict(kernels.LAUNCHES)
-    train_peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"# train: {len(order)} steps (views {order}); launches {launches}; "
-          f"losses {[f'{x:.6f}' for x in losses]}")
-    for name, n in launches.items():
-        check(n == len(order), f"kernel {name} launched {n} times over "
-              f"{len(order)} training steps (want one per step)")
-    for n_, t in g_train.named_parameters():
-        check(t.grad is not None and bool(torch.isfinite(t.grad).all()),
-              f"train: gradient of {n_} missing or non-finite")
-        check(not torch.equal(t.detach(), params0[n_]), f"train: {n_} did not change")
-    rel0 = abs(losses[0] - TRAIN_LOSS0) / TRAIN_LOSS0
-    print(f"# train: view 0's first loss {losses[0]:.7f} (bench.py's {TRAIN_LOSS0}, "
-          f"rel diff {rel0:.2e}); after the fixed steps {losses[-1]:.7f}")
-    check(rel0 <= 0.05, f"train: view 0's first loss {losses[0]} not within 5% "
-          f"of {TRAIN_LOSS0}")
-    check(losses[-1] < losses[0], f"train: view 0's loss did not fall "
-          f"({losses[0]} -> {losses[-1]})")
+    train = {}
+    for backend, fixed in (("stream", FIXED_STEPS), ("pallas", FLAT_FIXED_STEPS)):
+        train[backend] = train_phase(g, perturb(g), cams_t, configs[backend],
+                                     list(range(TRAIN_VIEWS)) + [0] * fixed, card)
+        torch.cuda.empty_cache()
+    # kernel → the training run its launches are read from (A, B: both)
+    key = {"repeat_fat_parents": ("stream", "repeat"), "expand_pairs": ("stream", "expand"),
+           "stream_forward": ("stream", "stream_fwd"),
+           "stream_backward": ("stream", "stream_bwd"),
+           "slots_forward": ("pallas", "slots_fwd"), "slots_backward": ("pallas", "slots_bwd")}
     for r in results:
-        r["launches"] = launches[{"repeat_fat_parents": "repeat",
-                                  "expand_pairs": "expand",
-                                  "stream_forward": "stream_fwd",
-                                  "stream_backward": "stream_bwd"}[r["name"]]]
-
-    # the step's split, on three more steps at view 0
-    split_ms = {"forward": [], "backward": [], "optimizer": []}
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        loss = torch.mean((gt.render(g_train, cams_t[0], cfg) - targets[0]) ** 2)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        opt.step()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for k, (a, b) in zip(split_ms, ((t0, t1), (t1, t2), (t2, t3))):
-            split_ms[k].append((b - a) * 1e3)
-    split_t = {k: round(statistics.median(x), 3) for k, x in split_ms.items()}
-    print(f"# train timing on {card}: median {statistics.median(step_ms):.3f} ms per "
-          f"fwd + bwd + Adam step over {len(step_ms)} steps (host clock, "
-          f"synchronize on both sides; all {[round(x, 2) for x in step_ms]}); "
-          f"split (median of 3 staged steps, ms) {split_t}; peak device memory "
-          f"{train_peak_gb:.2f} GiB")
+        backend, counter = key[r["name"]]
+        r["launches"] = train[backend]["launches"][counter]
+    results.sort(key=lambda r: list(key).index(r["name"]))  # A-F
 
     for r in results:
         print(f"# kernel {r['name']} on {card}: {r['ms']:.3f} ms vs plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}), max |err| {r['max_abs_err']:.3e}, "
-              f"{r['launches']} launches in the training run")
+              f"{r['launches']} launches in its path's training run")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as fh:
         json.dump(dict(card=card, kind=kind, kernels=results, frame_ms=frame_ms,
-                       stages_ms=stages, peak_gib=peak_gb, loss0=loss0,
-                       train_losses=losses, train_step_ms=step_ms,
-                       train_split_ms=split_ms, train_peak_gib=train_peak_gb),
+                       stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train),
                   fh, indent=1)
 
     print(json.dumps({"kernels": results}))

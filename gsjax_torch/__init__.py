@@ -4,7 +4,9 @@ The serving path of gsjax: project + SH → home layout with fat-splat
 splitting (CUDA kernel A) → pair expansion with the exact ellipse cull
 (CUDA kernel B) and one stable (tile, depth, pid) sort → front-to-back
 stream blend (CUDA kernel C), and its backward (CUDA kernel D) for
-training (gsjax_torch.train: Adam steps, fit, checkpoints). On a CUDA
+training (gsjax_torch.train: Adam steps, fit, checkpoints). With
+RenderConfig(backend="pallas") the blend is gsjax's flat slot-stream
+one instead (CUDA kernels E forward, F backward). On a CUDA
 device the kernels run (built from gsjax_torch/csrc at first use); on the
 CPU their plain PyTorch versions do. Constructors put tensors on the card
 unless device="cpu" is passed. Never imports jax or gsjax.

@@ -3,13 +3,16 @@ card, through gsjax_torch.
 
     python -m gsjax_torch.bench.run --mode orbit-exact   # 30-view 1080p orbit
     python -m gsjax_torch.bench.run --mode fixed         # fixed camera, black target
+    python -m gsjax_torch.bench.run --backend pallas --mode orbit-exact  # flat kernels
     python -m gsjax_torch.bench.run --quick --mode fixed --frames 2 --device cpu
 
 orbit-exact: the clean bonsai-scale scene renders each orbit view's
 target; a perturbed copy (`perturb`) then takes one fwd + bwd + Adam step
 at every view, in order. fixed: `--frames` steps at the bench camera
 toward a black target. Every view's overflow counters must read 0, or
-the run fails. The lazy modes (orbit, fixed-lazy) wait for the lazy
+the run fails. --backend picks the blend, as bench.py's flag does:
+stream (kernels C, D; the default) or pallas (the flat slot-stream
+kernels E, F). The lazy modes (orbit, fixed-lazy) wait for the lazy
 frame plans; autotune is not ported, so the copy budgets come from
 --fat-cap / --fat-live-cap, by default the ones the reference's autotune
 measured for this orbit.
@@ -124,6 +127,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=None, help="splat count")
     ap.add_argument("--mode", default="orbit-exact",
                     choices=["orbit-exact", "fixed", "orbit", "fixed-lazy"])
+    ap.add_argument("--backend", default="stream", choices=["stream", "pallas"],
+                    help="the blend: stream (kernels C, D) or pallas (the flat "
+                    "slot-stream kernels E, F)")
     ap.add_argument("--views", type=int, default=30)
     ap.add_argument("--frames", type=int, default=10, help="fixed mode: steps")
     ap.add_argument("--width", type=int, default=None,
@@ -162,14 +168,14 @@ def main(argv=None) -> int:
         n, width, height = args.n or 1_200_000, args.width or 1920, args.height or 1080
         caps = dict(fat_cap=args.fat_cap or FAT_CAP,
                     fat_live_cap=args.fat_live_cap or LIVE_CAP)
-    cfg = RenderConfig(backend="stream", chunk=128, **caps)
+    cfg = RenderConfig(backend=args.backend, chunk=128, **caps)
     g = bonsai_like(n=n, sh_degree=0, device=dev)
     if mode == "orbit-exact":
         cams = orbit_cameras(args.views, width, height, device=dev)
     else:
         cams = [bench_camera(width=width, height=height, device=dev)]
 
-    extra = {"mode": mode, "scene": "bonsai"}
+    extra = {"mode": mode, "backend": args.backend, "scene": "bonsai"}
     if mode == "fixed":
         targets = [torch.zeros((height, width, 3), dtype=torch.float32, device=dev)]
         g_train = g
@@ -210,7 +216,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     loss = steps[0](g_train, targets[0])  # warm-up: kernel build, caches
     loss0 = float(loss)
-    print(f"# mode={mode} n={n} {width}x{height} on {device_label(dev)}: "
+    print(f"# mode={mode} backend={args.backend} n={n} {width}x{height} on "
+          f"{device_label(dev)}: "
           f"warm-up {time.perf_counter() - t0:.1f}s loss0={loss0:.6f}",
           file=sys.stderr)
 

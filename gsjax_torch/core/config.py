@@ -47,7 +47,9 @@ class RenderConfig:
     transmittance_eps: float = 1e-4
     radius_sigma: float = 3.0
     background: tuple = (0.0, 0.0, 0.0)
-    backend: str = "auto"  # stream | auto (oracle, xla, pallas: not yet)
+    # stream | pallas (the flat slot-stream kernels E, F) | auto (= stream);
+    # oracle, xla: not yet
+    backend: str = "auto"
     # False: exact footprints — fat splats split into per-3×3-tile-block
     # home rows (render/homesort.py); True: legacy span-budget clamp
     footprint_clamp: bool = False

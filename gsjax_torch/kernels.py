@@ -31,15 +31,17 @@ import tempfile
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("repeat.cu", "expand.cu", "stream_fwd.cu", "stream_bwd.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("repeat.cu", "expand.cu", "stream_fwd.cu", "stream_bwd.cu",
+           "slots_fwd.cu", "slots_bwd.cu")
+HEADERS = ("common.cuh", "blend.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
     "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0, "stream_bwd": 0}
+LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0, "stream_bwd": 0,
+            "slots_fwd": 0, "slots_bwd": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argtypes); each returns cudaGetLastError() as an int
@@ -58,6 +60,14 @@ _SIGNATURES = {
     # k_slots, alpha_clamp, alpha_min, eps_T, dpair, stream
     "gsjax_stream_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _F, _F, _F, _P, _P),
+    # att_al, starts, cbase, n_tiles, ty0, tiles_x, ts, chunk, alpha_clamp,
+    # alpha_min, eps_T, out, stream
+    "gsjax_slots_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+                            _P),
+    # att_al, starts, cbase, fwd, ct_img, ct_T, n_tiles, ty0, tiles_x, ts,
+    # chunk, alpha_clamp, alpha_min, eps_T, datt, stream
+    "gsjax_slots_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _F, _F, _P, _P),
 }
 
 _lib = None

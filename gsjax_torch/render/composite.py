@@ -1,7 +1,8 @@
-"""Compositing helpers shared by the blend backends — the PyTorch
-counterpart of the parts of gsjax/render/composite.py the stream backend
-uses. The padded-list (xla) blend waits for ROADMAP queue 1, "reference
-blend path"."""
+"""Compositing helpers shared by the blend backends and the flat
+backend's compositor — the PyTorch counterpart of the parts of
+gsjax/render/composite.py the stream and flat backends use. The
+padded-list (xla) blend waits for ROADMAP queue 1, "reference blend
+path"."""
 
 from __future__ import annotations
 
@@ -40,3 +41,33 @@ def assemble_band(img_t, T_t, bins: TileBins, cfg: RenderConfig):
     T_map = T_t.reshape(band_rows, tiles_x, ts, ts)
     T_map = T_map.permute(0, 2, 1, 3).reshape(band_rows * ts, tiles_x * ts)
     return img, T_map
+
+
+def composite_tiles_flat(p: ProjectedSplats, bins: TileBins, cam, cfg: RenderConfig):
+    """Composite the tile band covered by `bins` through the flat slot-
+    stream kernels (render/flat.py: kernel E forward, F backward). `p` are
+    the home rows the bins were built over. Returns (img [band_rows·ts,
+    tiles_x·ts, 3], aux) with the stream backend's aux keys but
+    n_fat_overflow, which the caller adds from the layout (as the
+    reference's pipeline does)."""
+    # imported here, as in the reference: flat.py builds on stream.py,
+    # which builds on this module
+    from gsjax_torch.render.flat import blend_slots, chunked_pair_attrs
+
+    del cam  # the reference's signature; the bins carry the band
+    pid, starts, n_dropped = clipped_pair_stream(bins, cfg)
+    att_al, tile_of, cbase = chunked_pair_attrs(att_table(p), pid, starts, cfg,
+                                                cfg.tile_span * cfg.tile_span)
+    img_t, T_t = blend_slots(att_al, starts, cbase, tile_of, bins.ty0,
+                             bins.tiles_x, bins.band_rows, cfg)
+    img, T_map = assemble_band(img_t, T_t, bins, cfg)
+    zero = torch.zeros((), dtype=torch.int32, device=img.device)
+    aux = {
+        "transmittance": T_map,
+        "n_clamped": bins.n_clamped,
+        "n_pairs": bins.n_pairs,
+        "n_tile_overflow": zero,
+        "n_pair_overflow": n_dropped + bins.n_repack_overflow,
+        "n_band_overflow": zero,  # no band scratch in the port
+    }
+    return img, aux

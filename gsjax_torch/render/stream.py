@@ -29,7 +29,9 @@ gsjax/render/pallas_stream.py::_stream_fwd_kernel, kernel D
 band DMA, pid windows, bf16 split table, slot grouping and read-modify-
 write gradient bands are TPU plumbing and have no counterpart: the CUDA
 kernels read exact f32 attributes by home row, and D writes one gradient
-row per pair id.
+row per pair id. The tile loops, in CUDA (csrc/blend.cuh) and in their
+plain versions here (blend_forward_plain, blend_backward_plain), are the
+flat backend's too (render/flat.py): only the row source differs.
 """
 
 from __future__ import annotations
@@ -46,17 +48,34 @@ FWD_ROWS = 8  # img(3), T_act, C, n_done, spare(2)
 _PLAIN_TILE_BATCH = 256  # tiles per batch of the plain blend
 
 
-def stream_forward_plain(att, pid, starts, ty0: int, tiles_x: int,
-                         cfg: RenderConfig):
-    """Plain PyTorch version of kernel C (same contract as
-    stream_forward). Tiles go in batches of similar pair counts (sorted
-    by count, so a batch pads only to its own densest tile), one chunk at
-    a time with a cumprod down the chunk; tiles that terminated or ran
-    out of pairs leave the batch. No tile's list is truncated."""
-    dev = att.device
+def pair_rows(att, pid, starts, cfg: RenderConfig):
+    """The stream backend's chunk rows for the plain blends: rows(t, k,
+    valid) → (a [b, chunk, 9], key [b, chunk]) for chunk k of tiles t [b]
+    with lane mask valid [b, chunk] — the attributes of the pairs at
+    stream positions starts[t] + k·chunk + lane (home row pid // K, zero
+    on masked lanes) and their pair ids, the rows their gradients land
+    in."""
+    k_slots = cfg.tile_span * cfg.tile_span
+    lane = torch.arange(cfg.chunk, device=att.device)
+
+    def rows(t, k, valid):
+        pos = starts[t].to(torch.int64)[:, None] + k * cfg.chunk + lane
+        key = pid[torch.where(valid, pos, 0)].to(torch.int64)
+        return torch.where(valid[..., None], att[key // k_slots], 0.0), key
+
+    return rows
+
+
+def blend_forward_plain(rows, starts, ty0: int, tiles_x: int, cfg: RenderConfig):
+    """The plain front-to-back blend of kernels C and E (their contract),
+    chunk rows from `rows` (pair_rows, flat.slot_rows). Tiles go in
+    batches of similar pair counts (sorted by count, so a batch pads only
+    to its own densest tile), one chunk at a time with a cumprod down the
+    chunk; tiles that terminated or ran out of pairs leave the batch. No
+    tile's list is truncated."""
+    dev = starts.device
     ts, chunk = cfg.tile_size, cfg.chunk
     n_px = ts * ts
-    k_slots = cfg.tile_span * cfg.tile_span
     n_tiles = starts.shape[0] - 1
     out = torch.zeros((n_tiles, FWD_ROWS, n_px), dtype=torch.float32, device=dev)
     out[:, 3:5] = 1.0  # a tile with no pairs: T_act = C = 1
@@ -67,14 +86,12 @@ def stream_forward_plain(att, pid, starts, ty0: int, tiles_x: int,
     pix = torch.arange(n_px, device=dev)
     pxl, pyl = (pix % ts).to(torch.float32), (pix // ts).to(torch.float32)
     lane = torch.arange(chunk, device=dev)
-    sid_of = (pid // k_slots).to(torch.int64)
     eps = cfg.transmittance_eps
 
     for b0 in range(0, n_busy, _PLAIN_TILE_BATCH):
         tb = order[b0:b0 + _PLAIN_TILE_BATCH]
         nb = tb.shape[0]
         cnt = counts[tb]
-        st = starts[tb].to(torch.int64)
         px = ((tb % tiles_x) * ts).to(torch.float32)[:, None] + pxl
         py = ((tb // tiles_x + ty0) * ts).to(torch.float32)[:, None] + pyl
         C = torch.ones((nb, n_px), dtype=torch.float32, device=dev)
@@ -88,8 +105,7 @@ def stream_forward_plain(att, pid, starts, ty0: int, tiles_x: int,
                 break
             pos = k * chunk + lane  # [chunk]
             valid = pos[None, :] < cnt[active, None]  # [b, chunk]
-            idx = torch.where(valid, st[active, None] + pos, 0)
-            a = torch.where(valid[..., None], att[sid_of[idx]], 0.0)  # [b, chunk, 9]
+            a, _ = rows(tb[active], k, valid)  # [b, chunk, 9]
             dx = px[active][:, :, None] - a[:, None, :, 0]  # [b, n_px, chunk]
             dy = py[active][:, :, None] - a[:, None, :, 1]
             power = gaussian_power(a[:, None, :, 2:5], dx, dy)
@@ -115,6 +131,45 @@ def stream_forward_plain(att, pid, starts, ty0: int, tiles_x: int,
     return out
 
 
+def check_kernel_args(name: str, cfg: RenderConfig, att, shapes_ok: bool,
+                      n_tiles: int, indices, cotangents=None) -> None:
+    """Raise ValueError on what the blend kernels (C-F) do not take: a
+    device other than CUDA, attributes that are not float32 with 9
+    columns, inputs that fail the caller's shape tests (shapes_ok), index
+    arrays that are not int32, a tile or chunk too large for a block; in
+    the backward (cotangents = (fwd_out, ct_img, ct_T)), cotangents of
+    another shape or type."""
+    if att.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {att.device}")
+    if att.dtype != torch.float32 or att.shape[-1] != 9 or not shapes_ok:
+        raise ValueError(f"{name}: unexpected input shapes or types: attributes "
+                         f"{tuple(att.shape)} {att.dtype}")
+    if any(x.dtype != torch.int32 for x in indices):
+        raise ValueError(f"{name}: index arrays must be int32")
+    n_px = cfg.tile_size * cfg.tile_size
+    if cotangents is None:
+        if n_px > 1024 or cfg.chunk * 9 * 4 > 48 * 1024:
+            raise ValueError(f"{name}: tile_size ≤ 32 and chunk ≤ 1365 supported")
+        return
+    shapes = {"fwd_out": (n_tiles, FWD_ROWS, n_px), "ct_img": (n_tiles, n_px, 3),
+              "ct_T": (n_tiles, n_px)}
+    for (what, shape), x in zip(shapes.items(), cotangents):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 {what} {shape}")
+    smem = 4 * cfg.chunk * (9 + (n_px // 32) * 9 + 1)
+    if n_px % 32 or n_px > 1024 or smem > 227 * 1024:
+        raise ValueError(f"{name}: tile_size² must be a multiple of 32 up to "
+                         "1024, and the chunk's partial sums fit 227 KB")
+
+
+def stream_forward_plain(att, pid, starts, ty0: int, tiles_x: int,
+                         cfg: RenderConfig):
+    """Plain PyTorch version of kernel C (same contract as
+    stream_forward)."""
+    return blend_forward_plain(pair_rows(att, pid, starts, cfg), starts, ty0,
+                               tiles_x, cfg)
+
+
 def stream_forward(att, pid, starts, ty0: int, tiles_x: int, cfg: RenderConfig):
     """Front-to-back blend of every tile of the band.
 
@@ -129,17 +184,11 @@ def stream_forward(att, pid, starts, ty0: int, tiles_x: int, cfg: RenderConfig):
     fallback)."""
     if att.device.type == "cpu":
         return stream_forward_plain(att, pid, starts, ty0, tiles_x, cfg)
-    if att.device.type != "cuda":
-        raise ValueError(f"stream_forward: unsupported device {att.device}")
-    n_px = cfg.tile_size * cfg.tile_size
-    if att.dim() != 2 or att.shape[1] != 9 or att.dtype != torch.float32:
-        raise ValueError("stream_forward: expected float32 att [NH, 9]")
-    if pid.dtype != torch.int32 or starts.dtype != torch.int32:
-        raise ValueError("stream_forward: pid and starts must be int32")
-    if n_px > 1024 or cfg.chunk * 9 * 4 > 48 * 1024:
-        raise ValueError("stream_forward: tile_size ≤ 32 and chunk ≤ 1365 supported")
-    att, pid, starts = att.contiguous(), pid.contiguous(), starts.contiguous()
     n_tiles = starts.shape[0] - 1
+    check_kernel_args("stream_forward", cfg, att, att.dim() == 2, n_tiles,
+                      (pid, starts))
+    att, pid, starts = att.contiguous(), pid.contiguous(), starts.contiguous()
+    n_px = cfg.tile_size * cfg.tile_size
     out = torch.empty((n_tiles, FWD_ROWS, n_px), dtype=torch.float32, device=att.device)
     err = kernels.lib().gsjax_stream_forward(
         att.data_ptr(), pid.data_ptr(), starts.data_ptr(), n_tiles, ty0,
@@ -152,20 +201,19 @@ def stream_forward(att, pid, starts, ty0: int, tiles_x: int, cfg: RenderConfig):
     return out
 
 
-def stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
-                          tiles_x: int, cfg: RenderConfig):
-    """Plain PyTorch version of kernel D (same contract as
-    stream_backward). Tiles go in batches of similar chunk counts (sorted
-    by n_done, as the forward batches by pair count); each batch replays
-    its chunks in reverse, tiles leaving once their chunks are done. The
-    products and sums down a chunk run in the kernel's order (cumprod,
-    cumsum); each pair's gradients land in row pid of a per-pair buffer
-    that is summed per home row, as in the kernel."""
-    dev = att.device
+def blend_backward_plain(rows, n_keys: int, starts, fwd_out, ct_img, ct_T,
+                         ty0: int, tiles_x: int, cfg: RenderConfig):
+    """The plain VJP of blend_forward_plain, kernels D's and F's: each
+    replayed pair's 9 gradients in row `key` of a buffer [n_keys, 9]
+    (rows(t, k, valid) → (a, key), as for the forward; rows no replayed
+    pair reaches stay 0). Tiles go in batches of similar chunk counts
+    (sorted by n_done, as the forward batches by pair count); each batch
+    replays its chunks in reverse, tiles leaving once their chunks are
+    done. The products and sums down a chunk run in the kernels' order
+    (cumprod, cumsum)."""
+    dev = fwd_out.device
     ts, chunk = cfg.tile_size, cfg.chunk
     n_px = ts * ts
-    k_slots = cfg.tile_span * cfg.tile_span
-    nh = att.shape[0]
     counts = (starts[1:] - starts[:-1]).to(torch.int64)
     n_done = fwd_out[:, 5, 0].to(torch.int64)
     order = torch.argsort(n_done, descending=True, stable=True)
@@ -175,12 +223,11 @@ def stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
     pxl, pyl = (pix % ts).to(torch.float32), (pix // ts).to(torch.float32)
     lane = torch.arange(chunk, device=dev)
     eps = cfg.transmittance_eps
-    dpair = torch.zeros((nh * k_slots, 9), dtype=torch.float32, device=dev)
+    dout = torch.zeros((n_keys, 9), dtype=torch.float32, device=dev)
 
     for b0 in range(0, n_busy, _PLAIN_TILE_BATCH):
         tb = order[b0:b0 + _PLAIN_TILE_BATCH]
         cnt = counts[tb]
-        st = starts[tb].to(torch.int64)
         nd = n_done[tb]
         px = ((tb % tiles_x) * ts).to(torch.float32)[:, None] + pxl
         py = ((tb // tiles_x + ty0) * ts).to(torch.float32)[:, None] + pyl
@@ -192,9 +239,7 @@ def stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
             act = torch.nonzero(k < nd).squeeze(1)
             pos = k * chunk + lane
             valid = pos[None, :] < cnt[act, None]  # [b, chunk]
-            idx = torch.where(valid, st[act, None] + pos, 0)
-            pids = pid[idx].to(torch.int64)
-            a = torch.where(valid[..., None], att[pids // k_slots], 0.0)
+            a, key = rows(tb[act], k, valid)
             a = a[:, None]  # [b, 1, chunk, 9]
             dx = px[act][:, :, None] - a[..., 0]  # [b, n_px, chunk]
             dy = py[act][:, :, None] - a[..., 1]
@@ -236,9 +281,20 @@ def stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
                 ],
                 dim=-1,
             )
-            dpair[pids[valid]] = datt[valid]
+            dout[key[valid]] = datt[valid]
             C[act] = C_entry[..., 0]
             S[act] = S[act] + tot[..., 0]
+    return dout
+
+
+def stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
+                          tiles_x: int, cfg: RenderConfig):
+    """Plain PyTorch version of kernel D (same contract as
+    stream_backward): each pair's gradients land in row pid of a per-pair
+    buffer that is summed per home row, as in the kernel's wrapper."""
+    nh, k_slots = att.shape[0], cfg.tile_span * cfg.tile_span
+    dpair = blend_backward_plain(pair_rows(att, pid, starts, cfg), nh * k_slots,
+                                 starts, fwd_out, ct_img, ct_T, ty0, tiles_x, cfg)
     return dpair.view(nh, k_slots, 9).sum(dim=1)
 
 
@@ -256,25 +312,10 @@ def stream_backward(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
     if att.device.type == "cpu":
         return stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T,
                                      ty0, tiles_x, cfg)
-    if att.device.type != "cuda":
-        raise ValueError(f"stream_backward: unsupported device {att.device}")
-    n_px = cfg.tile_size * cfg.tile_size
     n_tiles = starts.shape[0] - 1
     k_slots = cfg.tile_span * cfg.tile_span
-    if att.dim() != 2 or att.shape[1] != 9 or att.dtype != torch.float32:
-        raise ValueError("stream_backward: expected float32 att [NH, 9]")
-    if pid.dtype != torch.int32 or starts.dtype != torch.int32:
-        raise ValueError("stream_backward: pid and starts must be int32")
-    shapes = {"fwd_out": (fwd_out, (n_tiles, FWD_ROWS, n_px)),
-              "ct_img": (ct_img, (n_tiles, n_px, 3)),
-              "ct_T": (ct_T, (n_tiles, n_px))}
-    for name, (x, shape) in shapes.items():
-        if tuple(x.shape) != shape or x.dtype != torch.float32:
-            raise ValueError(f"stream_backward: expected float32 {name} {shape}")
-    smem = 4 * cfg.chunk * (9 + (n_px // 32) * 9 + 1)
-    if n_px % 32 or n_px > 1024 or smem > 227 * 1024:
-        raise ValueError("stream_backward: tile_size² must be a multiple of 32 "
-                         "up to 1024, and the chunk's partial sums fit 227 KB")
+    check_kernel_args("stream_backward", cfg, att, att.dim() == 2, n_tiles,
+                      (pid, starts), (fwd_out, ct_img, ct_T))
     att, pid, starts = att.contiguous(), pid.contiguous(), starts.contiguous()
     fwd_out, ct_img, ct_T = fwd_out.contiguous(), ct_img.contiguous(), ct_T.contiguous()
     nh = att.shape[0]

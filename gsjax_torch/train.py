@@ -3,8 +3,10 @@ gsjax/train.py.
 
 render → mean squared error → Adam on the raw parameters (the five
 `nn.Parameter`s of a Gaussians module), one step per (camera, target)
-pair. On the card the forward runs kernels A–C and the backward kernel D
-(gsjax_torch/csrc). `optax.adam` and `torch.optim.Adam` share the update
+pair. On the card the forward runs kernels A, B and the blend's forward,
+the backward the blend's backward (gsjax_torch/csrc): kernels C and D
+with RenderConfig(backend="stream") (the default), E and F with
+backend="pallas" (the flat slot stream). `optax.adam` and `torch.optim.Adam` share the update
 formula (bias-corrected moments, eps added to the root of the second),
 so the reference's per-parameter learning-rate split is one torch Adam
 with five parameter groups. A step updates the parameters in place (the

@@ -138,14 +138,17 @@ def test_unported_paths_raise(rng):
     gp = tsynth.bonsai_like(n=200, seed=0, device="cpu")
     cam = gt.Camera.create(position=(0.0, 0.0, -4.0), fx=60.0, fy=60.0,
                            width=32, height=32, device="cpu")
-    for backend in ("oracle", "xla", "pallas"):
+    for backend in ("oracle", "xla"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gt.render(gp, cam, gt.RenderConfig(backend=backend))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gt.render_trajectory(gp, [cam], fade_in=True)
-    # the stream backend's backward is ported: a gradient reaches every field
-    img = gt.render(gp, cam, gt.RenderConfig(chunk=32))
-    img.sum().backward()
-    for name, p in gp.named_parameters():
-        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
-    assert float(gp.opacity_logits.grad.abs().max()) > 0
+    # the stream and flat ("pallas") backends' backwards are ported: a
+    # gradient reaches every field
+    for backend in ("stream", "pallas"):
+        gp.zero_grad(set_to_none=True)
+        img = gt.render(gp, cam, gt.RenderConfig(backend=backend, chunk=32))
+        img.sum().backward()
+        for name, p in gp.named_parameters():
+            assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+        assert float(gp.opacity_logits.grad.abs().max()) > 0, backend

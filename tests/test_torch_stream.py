@@ -1,5 +1,6 @@
 """gsjax_torch parity: the whole serving slice, render(backend="stream")
-and the headless viewer, against gsjax.
+and render(backend="pallas") (the flat slot-stream blend), and the
+headless viewer, against gsjax.
 
 The port's blend reads exact f32 attributes, so it is held to gsjax's
 plain f32 reference blend (backend "xla") at the bound
@@ -88,12 +89,15 @@ def ref():
     return out
 
 
-def test_render_matches_gsjax_xla(ref):
+@pytest.mark.parametrize("backend", ["stream", "pallas"])
+def test_render_matches_gsjax_xla(ref, backend):
+    """Both blend backends (the flat one's reference semantics are gsjax's
+    xla blend: gsjax/render/composite.py:19-20, tests/test_pallas.py)."""
     g, img_j, T_j = ref["thin"]
     _, camt = _cams()
     kernels.reset_launches()
     with torch.no_grad():
-        img, aux = gt.render(to_torch(g), camt, gt.RenderConfig(backend="stream", chunk=32),
+        img, aux = gt.render(to_torch(g), camt, gt.RenderConfig(backend=backend, chunk=32),
                              return_aux=True)
     assert img.shape == (H, W, 3)
     # only the transmittance products' accumulation order differs
@@ -107,11 +111,12 @@ def test_render_matches_gsjax_xla(ref):
     assert int(aux["n_pairs"]) > 0
     # CPU tensors take the kernels' plain versions: no kernel launched
     assert kernels.LAUNCHES == {"repeat": 0, "expand": 0, "stream_fwd": 0,
-                                "stream_bwd": 0}
+                                "stream_bwd": 0, "slots_fwd": 0, "slots_bwd": 0}
 
 
+@pytest.mark.parametrize("backend", ["stream", "pallas"])
 @pytest.mark.parametrize("name", ["fat", "mega"])
-def test_fat_splats_match_gsjax_oracle(ref, name):
+def test_fat_splats_match_gsjax_oracle(ref, name, backend):
     """Footprints spanning many tiles (and one covering the whole image,
     the reference's 1024-px reach) render the UNCLAMPED rect."""
     g, img_o = ref[name]
@@ -120,7 +125,7 @@ def test_fat_splats_match_gsjax_oracle(ref, name):
         dict(fat_max_blocks=256, fat_cap=512)
     with torch.no_grad():
         img, aux = gt.render(to_torch(g), camt,
-                             gt.RenderConfig(backend="stream", chunk=32, **kw),
+                             gt.RenderConfig(backend=backend, chunk=32, **kw),
                              return_aux=True)
     assert int(aux["n_fat_overflow"]) == 0
     d = np.abs(img.numpy() - img_o)

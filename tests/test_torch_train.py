@@ -1,6 +1,7 @@
 """gsjax_torch parity: the training slice against gsjax on the CPU —
 fexp's derivative, the home gather's VJP, render gradients of the stream
-backend (kernel D's plain version) on a thin and a fat-splat scene, Adam
+and flat backends (kernels D's and F's plain versions) on a thin and a
+fat-splat scene, Adam
 steps, fit, checkpoints, the device defaults and the bench runner.
 
 Gradients are held to jax.grad through gsjax's plain f32 `xla` backend,
@@ -86,21 +87,24 @@ def ref():
     return out
 
 
-def _loss_and_grads(g, tgt):
+def _loss_and_grads(g, tgt, backend):
     gp = to_torch(g)
     cam = gt.Camera.create(**CAM, device="cpu")
-    img, aux = gt.render(gp, cam, gt.RenderConfig(backend="stream", chunk=32, **KW),
+    img, aux = gt.render(gp, cam, gt.RenderConfig(backend=backend, chunk=32, **KW),
                          return_aux=True)
     loss = torch.mean((img - torch.from_numpy(tgt)) ** 2)
     loss.backward()
     return loss.item(), {f: getattr(gp, f).grad.numpy() for f in _FIELDS}, aux
 
 
+@pytest.mark.parametrize("backend", ["stream", "pallas"])
 @pytest.mark.parametrize("name", ["thin", "fat"])
-def test_render_grads_match_gsjax_xla(ref, name):
+def test_render_grads_match_gsjax_xla(ref, name, backend):
+    """Both blend backends: kernel D's plain version, or kernel F's and
+    the slot gather's scatter-set VJP."""
     r = ref[name]
     assert all(v == 0 for v in r["ovf"].values()), r["ovf"]
-    loss, grads, aux = _loss_and_grads(r["g"], r["tgt"])
+    loss, grads, aux = _loss_and_grads(r["g"], r["tgt"], backend)
     assert int(aux["n_fat_overflow"]) == 0
     assert abs(loss - r["loss"]) <= 1e-5 * r["loss"]
     for f in _FIELDS:

@@ -6,7 +6,9 @@ and check them.
 
 Phases (any failure exits non-zero; there is no CPU path):
   1. device  — require CUDA; print the card's name and power limit;
-  2. build   — compile the six CUDA kernels from gsjax_torch/csrc;
+  2. build   — compile the ten CUDA kernels from gsjax_torch/csrc: the
+               path's library (A-F) and the probes' (G-J), side by side,
+               every nvcc at once, each library's time printed;
   3. scene   — bonsai_like(n=1,200,000, seed=0, sh_degree=0) on cuda:0;
   4. cameras — bench.py's 1080p orbit: 30 views over 30° of azimuth;
   5. config  — chunk 128, fat_cap 2,342,912, fat_live_cap 1,617,920 (the
@@ -56,15 +58,31 @@ Phases (any failure exits non-zero; there is no CPU path):
                its split (forward, backward, optimizer) and peak device
                memory;
  10b. train flat — the same through backend "pallas", views 0-3 then 4
-               steps at view 0: A, B, E and F once per step, C and D never.
-Prints the kernels' JSON line (A-F, each with its time, its plain
-version's, its bound and its launches on its training path), then the
-card's name and power limit, then the result line {"ok": true, "device":
-{...}} last.
+               steps at view 0: A, B, E and F once per step, C and D never;
+ 11. probes  — the Hopper counterparts of the TPU probes (gsjax_torch.tools,
+               on no path: 0 launches in phases 7-10b), each against its
+               plain version at the probe's full shapes, on the probe's
+               inputs and random ones: G (mosaic) and I (scalars, 4
+               variants, G = 8192) bit-equal; J (chunk, 17 variants, G =
+               4096) value and checksum under the CPU tests' tolerances; H
+               (compact, nh = 2,398,208, classes 1, 3, 9) stream and count
+               bit-equal; times (I and J also as ns per block over base; a
+               J variant at or below base, but for the two whose work is
+               nil by design, is flagged as suspect) and H's one boolean
+               index. The counters, zeroed before each probe's comparison
+               and before its timed run, show its kernel launched once per
+               wrapper call and no other kernel.
+Prints the kernels' JSON line (A-J, each with its time, its plain
+version's, its bound and its launches: A-F in their path's training run,
+G-J in their probe's timed run in phase 11; a probe's times and bound
+are summed over its variants or class counts, one launch of each), then
+the card's name and power limit, then the result line {"ok": true,
+"device": {...}} last.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import itertools
 import json
@@ -87,6 +105,12 @@ FLAT_FIXED_STEPS = 4
 # the kernels each path launches (LAUNCHES keys); serving runs no *_bwd
 PATH_KERNELS = {"stream": ("repeat", "expand", "stream_fwd", "stream_bwd"),
                 "pallas": ("repeat", "expand", "slots_fwd", "slots_bwd")}
+# G-J (LAUNCHES keys = kernel-line names), on no path: phase 11 only
+PROBE_KERNELS = ("probe_mosaic", "probe_compact", "probe_scalars", "probe_chunk")
+# J variants whose work is a zero-trip loop and an untaken branch: their
+# cost over base is ~0 by design (their checksums show they ran), so they
+# are never flagged as suspect
+J_NO_WORK = ("fori0", "when_f")
 DEVICE = "cuda:0"
 
 # the card's peaks (H100 SXM data sheet) and the work per unit, counted
@@ -103,6 +127,27 @@ OPS_PER_PAIR_PIXEL_D = 85  # C's 39 up to the transmittance + v, U, dα, 9 grads
 # E and F run C's and D's per-pair math on the slot stream
 OPS_PER_PAIR_PIXEL_E, OPS_PER_PAIR_PIXEL_F = OPS_PER_PAIR_PIXEL_C, OPS_PER_PAIR_PIXEL_D
 ATT_BYTES = 9 * 4  # one pair's attribute row
+# the probes G-J (approximate, as A and B: launches and barriers, not this
+# work, set their times). G: the substage's 6 ops per element of [8, 2048],
+# the loop and the sums. I: per block, by variant, the inputs it needs
+# (six scalars or 128 ids) and its integer operations. J: by variant, the
+# input bytes it needs (every block reads the same chunk) and its integer
+# or fp32 operations per block. H: per lane and class.
+OPS_MOSAIC = 8 * 2048 * 6 + 128 * 4 * 3
+BYTES_PER_BLOCK_I = {"base": 0, "smem": 24, "vmem": 24, "reduce": 512}
+OPS_PER_BLOCK_I = {"base": 0, "smem": 6, "vmem": 6, "reduce": 128 * 16 + 6}
+BYTES_READ_J = {"roll": 1024, "swapaxes": 512, "decode": 512, "onehot3": 512,
+                "scatter3": 512, "alpha": 1024, "hs_prod": 65536, "dots": 65536,
+                "bwdsums": 65536, "fori0": 4, "when_f": 4, "banddyn": 24576 + 12,
+                "gatherreal": 512, "dynread": 44, "flatgather": 552, "maskwalk": 532}
+OPS_PER_BLOCK_J = {  # pixel variants: 128 rows × 256 pixels; gathers: 128 × 32
+    "base": 0, "roll": 256 * 2, "swapaxes": 128, "decode": 128 * 8,
+    "onehot3": 128 * 32 * 3 * 4, "scatter3": 128 * 3 * 5 + 16 * 384 * 3,
+    "alpha": 128 * 256 * 26, "hs_prod": 128 * 256 * 4, "dots": 128 * 256 * 8,
+    "bwdsums": 128 * 256 * 10, "fori0": 6, "when_f": 6, "banddyn": 32 * 384 + 128 * 32 * 3,
+    "gatherreal": 128 * 32 * 3 * 6, "dynread": 20, "flatgather": 128 * 32 * 10 * 6,
+    "maskwalk": 128 * 32 * 9 * 6}
+OPS_PER_LANE_CLASS_H = 4  # test the bit, its ballot, popcounts, the position
 
 
 RAW_FIELDS = ("means", "log_scales", "quats", "sh", "opacity_logits")
@@ -358,6 +403,201 @@ def train_phase(g, g_train, cams, cfg, order, card) -> dict:
                 split_ms=split_ms, peak_gib=peak_gb)
 
 
+class Counted:
+    """A probe's wrapper that counts its calls since start(), which zeroes
+    the launch counters; check() holds the kernel's counter to those calls
+    (one launch per call, no other kernel launched) and returns it."""
+
+    def __init__(self, name: str, fn):
+        self.name, self.fn = name, fn
+        self.start()
+
+    def __call__(self, *args):
+        self.n += 1
+        return self.fn(*args)
+
+    def start(self) -> None:
+        from gsjax_torch import kernels
+
+        kernels.reset_launches()
+        self.n = 0
+
+    def check(self) -> int:
+        from gsjax_torch import kernels
+
+        launched = {k: c for k, c in kernels.LAUNCHES.items() if c}
+        check(self.n > 0 and launched == {self.name: self.n},
+              f"probe {self.name}: launches {launched} for {self.n} wrapper calls "
+              f"(want one launch per call and no other kernel)")
+        return self.n
+
+
+def probes_phase(dev, card) -> tuple[list, dict]:
+    """11. The probes G-J (gsjax_torch.tools), each kernel against its
+    plain version at the probe's full shapes (and random inputs beside
+    the probe's own), then the probe's run: timed as its tool times it, a
+    kernel by the device time per launch in a CUDA graph of launches
+    (gsjax_torch.tools.time_ms: a launch from Python takes longer than
+    these kernels run), its plain version and H's boolean index between
+    CUDA events around the calls (they sync with the host). The launch
+    counters are zeroed before each probe's comparison and before its run
+    and read after each: its kernel launched once per wrapper call and no
+    other kernel launched. Returns their kernel-line entries (ms, plain_ms,
+    library_ms and bound summed over the probe's variants or class counts:
+    one launch of each; launches: the run's) and the per-variant numbers."""
+    import numpy as np
+    import torch
+
+    from gsjax_torch.tools import probe_chunk as pj
+    from gsjax_torch.tools import probe_compact as ph
+    from gsjax_torch.tools import probe_mosaic as pg
+    from gsjax_torch.tools import probe_scalars as pi
+    from gsjax_torch.tools import time_ms as device_ms
+    from gsjax_torch.tools import time_over_base_ms
+
+    results, detail = [], {}
+    rng = np.random.default_rng(21)
+
+    # G: bit-equal on a random input with negative ints and on the probe's
+    # (last: its s is printed)
+    mosaic = Counted("probe_mosaic", pg.probe_mosaic)
+    xs = [torch.from_numpy(rng.integers(-2**31, 2**31, (8, pg.CAP), dtype=np.int64)
+                           .astype(np.int32)).to(dev), pg.probe_input(dev)]
+    for x in xs:
+        (o, s), (op, sp) = mosaic(x), pg.probe_mosaic_plain(x)
+        check(torch.equal(o, op) and torch.equal(s, sp),
+              f"probe G differs from its plain version: {(o - op).abs().max()}, {s} {sp}")
+    mosaic.check()
+    mosaic.start()
+    ms_g = device_ms(lambda: mosaic(x), dev, 100)
+    g_bound = bound(nbytes(x, o, s), OPS_MOSAIC)
+    results.append(dict(
+        name="probe_mosaic", route="cuda", source="gsjax_torch/csrc/probe_mosaic.cu",
+        replaces="tools/probe_mosaic.py:25", launches=mosaic.check(), max_abs_err=0.0,
+        ms=ms_g, plain_ms=cuda_ms(lambda: pg.probe_mosaic_plain(x), 5),
+        bound_ms=g_bound[0], bound_by=g_bound[1], library_ms=None))
+    print(f"# G probe_mosaic: o and s bit-equal on the probe's input and a random "
+          f"one; s = {int(s[0])}; {ms_g:.4f} ms per launch")
+
+    # I: out bit-equal for every variant; ns per block over base
+    scalars = Counted("probe_scalars", pi.probe_scalars)
+    g_i = pi.G
+    stab, rows = pi.probe_inputs(g_i, dev)
+    stab_r = torch.from_numpy(rng.integers(-2**31, 2**31, 6 * g_i, dtype=np.int64)
+                              .astype(np.int32)).to(dev)
+    rows_r = torch.from_numpy(rng.integers(-300, 300, (g_i, pi.LANES)).astype(np.int32)).to(dev)
+    for v in pi.VARIANTS:
+        for st, rw in ((stab, rows), (stab_r, rows_r)):
+            check(torch.equal(scalars(v, st, rw), pi.probe_scalars_plain(v, st, rw)),
+                  f"probe I ({v}) differs from its plain version")
+    scalars.check()
+    scalars.start()
+    ms_i, plain_i, over_i, n_bytes, n_ops = {}, {}, {}, 0, 0
+    for v in pi.VARIANTS:
+        ms_i[v], base_ms = time_over_base_ms(lambda: scalars(v, stab, rows),
+                                             lambda: scalars("base", stab, rows), dev, 50)
+        over_i[v] = (ms_i[v] - base_ms) / g_i * 1e6
+        plain_i[v] = cuda_ms(lambda: pi.probe_scalars_plain(v, stab, rows), 5)
+        n_bytes += (BYTES_PER_BLOCK_I[v] + 4) * g_i
+        n_ops += OPS_PER_BLOCK_I[v] * g_i
+    i_bound = bound(n_bytes, n_ops)
+    results.append(dict(
+        name="probe_scalars", route="cuda", source="gsjax_torch/csrc/probe_scalars.cu",
+        replaces="tools/probe_scalars.py:33", launches=scalars.check(), max_abs_err=0.0,
+        ms=sum(ms_i.values()), plain_ms=sum(plain_i.values()), bound_ms=i_bound[0],
+        bound_by=i_bound[1], library_ms=None))
+    detail["probe_scalars"] = dict(ms=ms_i, plain_ms=plain_i, ns_per_block_over_base=over_i)
+    print(f"# I probe_scalars on {card}: out bit-equal (4 variants, probe and random "
+          f"inputs); G = {g_i} blocks, ms {_fmt(ms_i)}; ns per block over base (timed "
+          f"beside it) {_fmt(over_i, 2)}")
+
+    # J: value and checksum under the tests' tolerances; ns per block over base
+    chunk = Counted("probe_chunk", pj.probe_chunk)
+    g_j = pj.G
+    inputs = [pj.probe_inputs(dev), pj.random_inputs(dev)]
+    err_j = 0.0
+    for v in pj.VARIANTS:
+        for rw, bd in inputs:
+            k, p = chunk(v, rw, bd), pj.probe_chunk_plain(v, rw, bd)
+            same = torch.equal(k, p) if v == "base" else torch.equal(k, k[:1].expand_as(k))
+            check(same and pj.agree(v, k[-1], p[-1]),
+                  f"probe J ({v}) differs from its plain version: {k[-1].tolist()} "
+                  f"against {p[-1].tolist()}")
+            err_j = max(err_j, float((k[-1] - p[-1]).abs().max()))
+    chunk.check()
+    chunk.start()
+    ms_j, plain_j, over_j, n_bytes, n_ops = {}, {}, {}, 0, 0
+    for v in pj.VARIANTS:
+        ms_j[v], base_ms = time_over_base_ms(lambda: chunk(v, *inputs[0]),
+                                             lambda: chunk("base", *inputs[0]), dev, 50)
+        over_j[v] = (ms_j[v] - base_ms) / g_j * 1e6
+        plain_j[v] = cuda_ms(lambda: pj.probe_chunk_plain(v, *inputs[0]), 3)
+        n_bytes += BYTES_READ_J.get(v, 0) + 8 * g_j
+        n_ops += OPS_PER_BLOCK_J[v] * g_j
+    j_bound = bound(n_bytes, n_ops)
+    results.append(dict(
+        name="probe_chunk", route="cuda", source="gsjax_torch/csrc/probe_chunk.cu",
+        replaces="tools/probe_chunk.py:35", launches=chunk.check(), max_abs_err=err_j,
+        ms=sum(ms_j.values()), plain_ms=sum(plain_j.values()), bound_ms=j_bound[0],
+        bound_by=j_bound[1], library_ms=None))
+    suspect = [v for v in pj.VARIANTS[1:] if v not in J_NO_WORK and over_j[v] <= 0]
+    detail["probe_chunk"] = dict(ms=ms_j, plain_ms=plain_j, ns_per_block_over_base=over_j,
+                                 suspect=suspect)
+    print(f"# J probe_chunk on {card}: 17 variants agree with their plain versions "
+          f"(probe and random inputs, max |Δ| {err_j:.3e}); G = {g_j} blocks, ms "
+          f"{_fmt(ms_j)}; ns per block over base (timed beside it) {_fmt(over_j, 2)}")
+    for v in suspect:
+        print(f"# J SUSPECT: variant {v} takes {over_j[v]:.2f} ns per block over base "
+              f"(at or below 0: was its work eliminated?)")
+
+    # H: stream and count bit-equal for classes 1, 3, 9, on the probe's
+    # input (vals = 1) and on random masks and values (the order shows)
+    compact = Counted("probe_compact", ph.probe_compact)
+    mask, vals = ph.probe_inputs(2_400_000, dev)
+    nh = mask.numel()
+    mask_r = torch.from_numpy(rng.integers(-2**31, 2**31, nh, dtype=np.int64)
+                              .astype(np.int32)).to(dev)
+    vals_r = torch.from_numpy(rng.normal(size=(8, nh)).astype(np.float32)).to(dev)
+    counts = {}
+    for c in ph.CLASSES:
+        for m, vl in ((mask_r, vals_r), (mask, vals)):  # the probe's last: its count
+            (sk, ck), (sp, cp) = compact(m, vl, c), ph.probe_compact_plain(m, vl, c)
+            n = int(cp[0])
+            check(torch.equal(ck, cp) and torch.equal(sk[:, :n], sp[:, :n]),
+                  f"probe H (classes {c}) differs from its plain version: count "
+                  f"{int(ck[0])} against {n}")
+            del sk, sp
+        counts[c] = n
+    compact.check()
+    compact.start()
+    ms_h, plain_h, lib_h, n_bytes, n_ops = {}, {}, {}, 0, 0
+    for c in ph.CLASSES:
+        ms_h[c] = device_ms(lambda: compact(mask, vals, c), dev, 10)
+        plain_h[c] = cuda_ms(lambda: ph.probe_compact_plain(mask, vals, c), 3)
+        lib_h[c] = cuda_ms(lambda: ph.compact_index(mask, vals, c), 3)
+        n_bytes += 36 * nh + 32 * counts[c] + 4
+        n_ops += OPS_PER_LANE_CLASS_H * nh * c
+    h_bound = bound(n_bytes, n_ops)
+    results.append(dict(
+        name="probe_compact", route="cuda", source="gsjax_torch/csrc/probe_compact.cu",
+        replaces="tools/probe_compact.py:59", launches=compact.check(), max_abs_err=0.0,
+        ms=sum(ms_h.values()), plain_ms=sum(plain_h.values()), bound_ms=h_bound[0],
+        bound_by=h_bound[1], library_ms=sum(lib_h.values())))
+    detail["probe_compact"] = dict(nh=nh, counts=counts, ms=ms_h, plain_ms=plain_h,
+                                   library_ms=lib_h)
+    print(f"# H probe_compact on {card}: stream and count bit-equal (classes 1, 3, 9; "
+          f"the probe's input and random masks and values) at nh = {nh}; entries "
+          f"{counts}; ms {_fmt(ms_h)}; ns per slot "
+          f"{_fmt({c: ms_h[c] * 1e6 / (nh * c) for c in ph.CLASSES})}; plain "
+          f"{_fmt(plain_h)}; one boolean index {_fmt(lib_h)}")
+    detail["launches"] = {r["name"]: r["launches"] for r in results}
+    return results, detail
+
+
+def _fmt(d: dict, digits: int = 4) -> dict:
+    return {k: round(x, digits) for k, x in d.items()}
+
+
 def main() -> int:
     import torch
 
@@ -390,10 +630,21 @@ def main() -> int:
     dev = torch.device(DEVICE)
 
     # 2. build -------------------------------------------------------------
+    # both libraries side by side (every nvcc at once), each timed: the
+    # path's time is the cold start of a first render() or train step
     t0 = time.perf_counter()
-    path = kernels.build()
-    kernels.lib()
-    print(f"# build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path, ROOT)}")
+
+    def build(library):
+        path = kernels.build(library)
+        return os.path.relpath(path, ROOT), time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = dict(zip(kernels.SOURCES, pool.map(build, kernels.SOURCES)))
+    for library in kernels.SOURCES:
+        kernels.lib(library)
+    print(f"# build: {time.perf_counter() - t0:.2f} s; "
+          + "; ".join(f"{library} library ready after {t:.2f} s -> {path}"
+                      for library, (path, t) in built.items()))
 
     # 3-5. scene, cameras, config -------------------------------------------
     t0 = time.perf_counter()
@@ -763,7 +1014,15 @@ def main() -> int:
         train[backend] = train_phase(g, perturb(g), cams_t, configs[backend],
                                      list(range(TRAIN_VIEWS)) + [0] * fixed, card)
         torch.cuda.empty_cache()
-    # kernel → the training run its launches are read from (A, B: both)
+    # 11. probes: G-J against their plain versions, on no path; the
+    # counters show that only this phase launched them ----------------------
+    t0 = time.perf_counter()
+    probe_results, probe_detail = probes_phase(dev, card)
+    print(f"# probes: {time.perf_counter() - t0:.2f} s; launches in their runs "
+          f"{probe_detail['launches']}")
+
+    # A-F: kernel → the training run its launches are read from (A, B:
+    # both); the probes G-J: their runs in phase 11
     key = {"repeat_fat_parents": ("stream", "repeat"), "expand_pairs": ("stream", "expand"),
            "stream_forward": ("stream", "stream_fwd"),
            "stream_backward": ("stream", "stream_bwd"),
@@ -771,16 +1030,22 @@ def main() -> int:
     for r in results:
         backend, counter = key[r["name"]]
         r["launches"] = train[backend]["launches"][counter]
+        r["run"] = "its path's training run"
     results.sort(key=lambda r: list(key).index(r["name"]))  # A-F
+    probe_results.sort(key=lambda r: PROBE_KERNELS.index(r["name"]))  # G-J
+    for r in probe_results:
+        r["run"] = "its probe's run in phase 11"
+    results += probe_results
 
     for r in results:
         print(f"# kernel {r['name']} on {card}: {r['ms']:.3f} ms vs plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}), max |err| {r['max_abs_err']:.3e}, "
-              f"{r['launches']} launches in its path's training run")
+              f"{r['launches']} launches in {r.pop('run')}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as fh:
         json.dump(dict(card=card, kind=kind, kernels=results, frame_ms=frame_ms,
-                       stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train),
+                       stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train,
+                       probes=probe_detail),
                   fh, indent=1)
 
     print(json.dumps({"kernels": results}))

@@ -1,11 +1,14 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources under gsjax_torch/csrc/ compile with nvcc, one process per
-source and all at once, then link into ONE shared library with a plain C
+source and all at once, then link into a shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so the build takes
-seconds). The build happens at first use, into gsjax_torch/_build/, under
-a file name that carries a hash of the sources and flags: an edited
-source rebuilds, an unchanged one loads the cached library.
+seconds). There are two libraries: "path", the serving and training
+path's kernels A-F, and "probes", the probes G-J (gsjax_torch.tools, on
+no path), so that the path's first call never compiles the probes. Each
+is built at its first use, into gsjax_torch/_build/, under a file name
+that carries a hash of its sources, headers and flags: an edited source
+rebuilds its library, an unchanged one loads the cached file.
 
 `-fmad=false` is load-bearing: the ellipse-cull quadratics of the repeat
 and expansion kernels must round exactly as their plain PyTorch versions
@@ -31,9 +34,12 @@ import tempfile
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("repeat.cu", "expand.cu", "stream_fwd.cu", "stream_bwd.cu",
-           "slots_fwd.cu", "slots_bwd.cu")
-HEADERS = ("common.cuh", "blend.cuh")
+# library → its sources, and the headers they include
+SOURCES = {"path": ("repeat.cu", "expand.cu", "stream_fwd.cu", "stream_bwd.cu",
+                    "slots_fwd.cu", "slots_bwd.cu"),
+           "probes": ("probe_mosaic.cu", "probe_compact.cu", "probe_scalars.cu",
+                      "probe_chunk.cu")}
+HEADERS = {"path": ("common.cuh", "blend.cuh"), "probes": ("common.cuh", "probe.cuh")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -41,11 +47,13 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0, "stream_bwd": 0,
-            "slots_fwd": 0, "slots_bwd": 0}
+            "slots_fwd": 0, "slots_bwd": 0, "probe_mosaic": 0, "probe_compact": 0,
+            "probe_scalars": 0, "probe_chunk": 0}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points: (argtypes); each returns cudaGetLastError() as an int
-_SIGNATURES = {
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# library → its C entry points: (argtypes); each returns
+# cudaGetLastError() as an int
+_SIGNATURES = {"path": {
     # src18, fb, fbe, thr, nf, nc, fat_cap, tiles_x, tiles_y, span, ts,
     # tail, keys, stream
     "gsjax_repeat_fat_parents": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -68,9 +76,18 @@ _SIGNATURES = {
     # chunk, alpha_clamp, alpha_min, eps_T, datt, stream
     "gsjax_slots_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _F, _F, _P, _P),
-}
+}, "probes": {
+    # x, o, s, stream
+    "gsjax_probe_mosaic": (_P, _P, _P, _P),
+    # mask, vals, nh, classes, block_tot, block_off, out, cap, count, stream
+    "gsjax_probe_compact": (_P, _P, _I, _I, _P, _P, _P, _L, _P, _P),
+    # variant, stab, rows, g, lanes, out, stream
+    "gsjax_probe_scalars": (_I, _P, _P, _I, _I, _P, _P),
+    # variant, rows, band, g, out, stream
+    "gsjax_probe_chunk": (_I, _P, _P, _I, _P, _P),
+}}
 
-_lib = None
+_libs: dict = {}
 
 
 def reset_launches() -> None:
@@ -89,12 +106,12 @@ def _nvcc() -> str:
     return cand
 
 
-def library_path() -> str:
+def library_path(library: str = "path") -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+    for name in SOURCES[library] + HEADERS[library]:
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + fh.read())
-    return os.path.join(BUILD_DIR, f"libgsjax_torch_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libgsjax_torch_{library}_{h.hexdigest()[:16]}.so")
 
 
 def _run_all(cmds) -> None:
@@ -109,37 +126,37 @@ def _run_all(cmds) -> None:
             )
 
 
-def build() -> str:
-    """Compile the kernels if the hashed library is missing; returns its
-    path. One nvcc per source, all started together, then one link, in a
-    scratch directory: a concurrent or cut build never leaves a
-    half-written library under the final name."""
-    path = library_path()
+def build(library: str = "path") -> str:
+    """Compile the library ("path" or "probes") if its hashed file is
+    missing; returns its path. One nvcc per source, all started together,
+    then one link, in a scratch directory: a concurrent or cut build never
+    leaves a half-written library under the final name."""
+    path = library_path(library)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
+    sources = SOURCES[library]
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, f"{src}.o") for src in SOURCES]
+        objs = [os.path.join(tmp, f"{src}.o") for src in sources]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
-                  for src, obj in zip(SOURCES, objs)])
+                  for src, obj in zip(sources, objs)])
         so = os.path.join(tmp, "lib.so")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
         os.replace(so, path)
     return path
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
+def lib(library: str = "path") -> ctypes.CDLL:
+    """The loaded kernel library ("path" or "probes"), built on first use."""
+    if library not in _libs:
+        handle = ctypes.CDLL(build(library))
+        for name, argtypes in _SIGNATURES[library].items():
             fn = getattr(handle, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        _lib = handle
-    return _lib
+        _libs[library] = handle
+    return _libs[library]
 
 
 def check(err: int, name: str) -> None:

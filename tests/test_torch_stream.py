@@ -110,8 +110,7 @@ def test_render_matches_gsjax_xla(ref, backend):
         assert int(aux[k]) == 0, k
     assert int(aux["n_pairs"]) > 0
     # CPU tensors take the kernels' plain versions: no kernel launched
-    assert kernels.LAUNCHES == {"repeat": 0, "expand": 0, "stream_fwd": 0,
-                                "stream_bwd": 0, "slots_fwd": 0, "slots_bwd": 0}
+    assert kernels.LAUNCHES and not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 
 
 @pytest.mark.parametrize("backend", ["stream", "pallas"])

@@ -38,12 +38,23 @@ Phases (any failure exits non-zero; there is no CPU path):
                real loss (the perturbed scene against the clean scene's
                render), the backward kernel against its plain version:
                per attribute column p99.9 |Δ|/peak ≤ 1e-4 and max ≤ 1e-1
-               (in-chunk products round differently, so a pixel's include
-               set may flip near eps), two launches bit-equal; times of
-               both;
+               (each replays its own forward's decisions, and the kernel's
+               sequential transmittance product and the plain version's
+               cumprod round differently, so a pixel's include set may
+               flip near eps), two launches bit-equal; times of both, the
+               wrapper's zero of its row marks, blend kernel and class-
+               sum kernel apart (the class sum against its plain
+               version within 1e-6 of each column's peak, a kernels-line
+               entry of its own), and the kernel's work at view 0 as the
+               plain replay counts it under the kernel's grouping ((warp,
+               pair)s with an included pixel, groups reduced, pair-pixels
+               the warps' stops skip) beside the work the VJP needs (the
+               live and the included pair-pixels, which set the bounds of
+               C, D, E and F);
   9c. kernel F — the flat backward against its plain version with the
                same cotangents and bounds, two launches bit-equal; then
-               its gradient after the slot gather's VJP against D's;
+               its gradient after the slot gather's VJP against D's (bit-
+               equal or not); times;
   9b. gradients — the small scenes of phase 6b with a background (so
                ct_T ≠ 0), both backends: every field's gradient on the
                card against the CPU's plain path;
@@ -51,7 +62,8 @@ Phases (any failure exits non-zero; there is no CPU path):
                trained toward the port's renders of the clean scene, one
                fwd + bwd + Adam(1e-3) step at each of views 0-3, then 8 at
                view 0; zero the launch counters before, read them after:
-               kernels A-D once per step, E and F never; overflow 0,
+               kernels A-D (D's blend and class sum) once per step, E and
+               F never; overflow 0,
                gradients finite, parameters changed, view 0's first loss
                within 5% of 0.00031 (bench.py's loss0 for this
                perturbation), the loss at view 0 falling; median ms/step,
@@ -72,8 +84,9 @@ Phases (any failure exits non-zero; there is no CPU path):
                index. The counters, zeroed before each probe's comparison
                and before its timed run, show its kernel launched once per
                wrapper call and no other kernel.
-Prints the kernels' JSON line (A-J, each with its time, its plain
-version's, its bound and its launches: A-F in their path's training run,
+Prints the kernels' JSON line (A-J and D's class sum, each with its
+time, its plain version's, its bound and its launches: A-F in their
+path's training run,
 G-J in their probe's timed run in phase 11; a probe's times and bound
 are summed over its variants or class counts, one launch of each), then
 the card's name and power limit, then the result line {"ok": true,
@@ -102,9 +115,11 @@ TRAIN_LOSS0 = 0.00031  # bench.py's loss0 for perturb(g) at view 0 (BENCH_r05.js
 SERVE_VIEWS = 4
 TRAIN_VIEWS, FIXED_STEPS = 4, 8
 FLAT_FIXED_STEPS = 4
-# the kernels each path launches (LAUNCHES keys); serving runs no *_bwd
-PATH_KERNELS = {"stream": ("repeat", "expand", "stream_fwd", "stream_bwd"),
-                "pallas": ("repeat", "expand", "slots_fwd", "slots_bwd")}
+# the kernels each path launches (LAUNCHES keys) serving, and besides
+# those when training
+SERVE_KERNELS = {"stream": ("repeat", "expand", "stream_fwd"),
+                 "pallas": ("repeat", "expand", "slots_fwd")}
+TRAIN_KERNELS = {"stream": ("stream_bwd", "stream_class_sum"), "pallas": ("slots_bwd",)}
 # G-J (LAUNCHES keys = kernel-line names), on no path: phase 11 only
 PROBE_KERNELS = ("probe_mosaic", "probe_compact", "probe_scalars", "probe_chunk")
 # J variants whose work is a zero-trip loop and an untaken branch: their
@@ -115,17 +130,20 @@ DEVICE = "cuda:0"
 
 # the card's peaks (H100 SXM data sheet) and the work per unit, counted
 # from the kernels' sources: every +, ×, compare, min / max, floor and
-# conversion one operation, one pass over the work (recomputation, such
-# as kernel D's three passes, is not work the function needs). A and B
-# are approximate (their bound is the bytes, by 10x or more)
+# conversion one operation, one pass over the work the data needs
+# (recomputation is not work the function needs, nor are the pairs of a
+# pixel past its C < eps). A and B are approximate (their bound is the
+# bytes, by 10x or more)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_SLOT_A = 130  # ~20-step binary search + block decode + the cull
 OPS_PER_CANDIDATE_B = 60  # window tests + the four-edge quadratic minimum
-OPS_PER_PAIR_PIXEL_C = 45  # quadratic 9, fexp 20, α 2, tests 2, C 3, rgb 6, …
-OPS_PER_PAIR_PIXEL_D = 85  # C's 39 up to the transmittance + v, U, dα, 9 grads, 9 sums
-# E and F run C's and D's per-pair math on the slot stream
-OPS_PER_PAIR_PIXEL_E, OPS_PER_PAIR_PIXEL_F = OPS_PER_PAIR_PIXEL_C, OPS_PER_PAIR_PIXEL_D
+# the blends (C, E forward; D, F backward) per pair-pixel: α and the
+# transmittance wherever the pixel's C ≥ eps before the pair (live), the
+# colour or the gradients only where the pair is included
+OPS_LIVE_PAIR_PIXEL = 39  # quadratic 9, fexp 20, α 2, tests 2, C 3, …
+OPS_INCLUDED_PAIR_PIXEL_C = 6  # w and the rgb sums (E: the same)
+OPS_INCLUDED_PAIR_PIXEL_D = 46  # v, U, dα, 9 gradients, 9 sums (F: the same)
 ATT_BYTES = 9 * 4  # one pair's attribute row
 # the probes G-J (approximate, as A and B: launches and barriers, not this
 # work, set their times). G: the substage's 6 ops per element of [8, 2048],
@@ -203,6 +221,14 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def needed_ops(work, ops_included: int) -> int:
+    """The operations a blend needs on this data, from the plain replay's
+    counts (stream.blend_backward_plain's stats): OPS_LIVE_PAIR_PIXEL per
+    live pair-pixel, ops_included per included one."""
+    return (OPS_LIVE_PAIR_PIXEL * work["pair_pixels_live"]
+            + ops_included * work["pair_pixels_included"])
+
+
 def replayed_pair_pixels(out, starts, cfg) -> int:
     """Pair-pixels of the chunks the blend ran (and the backward replays):
     Σ_tiles ts² · min(pairs, n_done · chunk)."""
@@ -271,7 +297,7 @@ def check_launches(launches, backend: str, n: int, train: bool) -> None:
     launched n times, every other kernel never."""
     what = "training steps" if train else "frames"
     for name, count in launches.items():
-        on_path = name in PATH_KERNELS[backend] and (train or not name.endswith("_bwd"))
+        on_path = name in SERVE_KERNELS[backend] or (train and name in TRAIN_KERNELS[backend])
         want = n if on_path else 0
         check(count == want, f"{backend}: kernel {name} launched {count} times over "
               f"{n} {what} (want {want})")
@@ -720,7 +746,15 @@ def main() -> int:
         err_c, p999, n_done_diff, c_diff = blend_diff(out_k, out_p)
         counts = starts[1:] - starts[:-1]
         pp_c = replayed_pair_pixels(out_k, starts, cfg)
-        bound_c = bound(nbytes(att, pid, starts, out_k), OPS_PER_PAIR_PIXEL_C * pp_c)
+        # the pair-pixels the blend needs (live, included), counted by the
+        # plain replay of the same decisions
+        work_c = {}
+        ct0 = torch.zeros((out_k.shape[0], out_k.shape[2], 3), device=dev)
+        stream.stream_backward_plain(att, pid, starts, out_k, ct0, ct0[..., 0], 0,
+                                     tiles_x, cfg, stats=work_c)
+        del ct0
+        bound_c = bound(nbytes(att, pid, starts, out_k),
+                        needed_ops(work_c, OPS_INCLUDED_PAIR_PIXEL_C))
         print(f"# C stream blend: {bins.pid_sorted.shape[0]} pairs over "
               f"{tiles_x * tiles_y} tiles (max {int(counts.max())} per tile, "
               f"{int((counts == 0).sum())} empty); |img, T_act| diff p99.9 "
@@ -728,7 +762,8 @@ def main() -> int:
               f"differs on {n_done_diff} tiles; mean chunks run "
               f"{float(out_k[:, 5, 0].mean()):.2f} of "
               f"{float((-(-counts // cfg.chunk)).float().mean()):.2f}; "
-              f"{pp_c} pair-pixels run")
+              f"{pp_c} pair-pixels run, {work_c['pair_pixels_live']} live (the pixel's "
+              f"C ≥ eps before the pair), {work_c['pair_pixels_included']} included")
         check(p999 <= 2e-5, f"kernel C: p99.9 |diff| {p999} > 2e-5")
         check(err_c <= 5e-3, f"kernel C: max |diff| {err_c} > 5e-3")
         check(n_done_diff <= max(8, tiles_x * tiles_y // 1000),
@@ -754,8 +789,9 @@ def main() -> int:
         e_equals_c = torch.equal(out_e, out_k)
         pp_e = replayed_pair_pixels(out_e, starts, cfg)
         # the slots up to n_done in each tile: their pairs' rows
+        # the same pairs as C's: C's count of the work they need
         bound_e = bound(pp_e // cfg.tile_size ** 2 * ATT_BYTES + nbytes(starts, cbase, out_e),
-                        OPS_PER_PAIR_PIXEL_E * pp_e)
+                        needed_ops(work_c, OPS_INCLUDED_PAIR_PIXEL_C))
         ms_e = cuda_ms(lambda: flat.slots_forward(*e_args), 20)
         ms_c = cuda_ms(lambda: stream.stream_forward(*c_args), 20)
         print(f"# E slot blend: {att_al.shape[0]} slots ({int(cbase[-1])} live, "
@@ -894,7 +930,8 @@ def main() -> int:
     with torch.no_grad():
         dk = stream.stream_backward(*d_args)
         dk2 = stream.stream_backward(*d_args)
-        dp = stream.stream_backward_plain(*d_args)
+        work = {}  # the kernel's work, counted by the plain replay
+        dp = stream.stream_backward_plain(*d_args, stats=work)
         torch.cuda.synchronize()
         check(torch.equal(dk, dk2), "kernel D: two launches differ (not deterministic)")
         p999, rel_max, err_d, n_rows = grad_diff(dk, dp)
@@ -907,23 +944,61 @@ def main() -> int:
         check(bool(torch.isfinite(dk).all()), "kernel D: non-finite gradients")
         pp_d = replayed_pair_pixels(out, starts, cfg)
         bound_d = bound(nbytes(att, pid, starts, out, ct_img, ct_T, dk),
-                        OPS_PER_PAIR_PIXEL_D * pp_d)
+                        needed_ops(work, OPS_INCLUDED_PAIR_PIXEL_D))
         nh = att.shape[0]
         k_slots = cfg.tile_span ** 2
-        buf_ms = cuda_ms(lambda: torch.zeros((nh * k_slots, 9), device=dev)
-                         .view(nh, k_slots, 9).sum(dim=1), 10)
+        # the wrapper's three parts apart: the zero of the row marks, the
+        # blend kernel, the class-sum kernel (against its plain version)
+        dpair = torch.empty((nh * k_slots, 9), device=dev)
+        replayed = torch.zeros(nh * k_slots, dtype=torch.uint8, device=dev)
+        zero_ms = cuda_ms(lambda: torch.zeros(nh * k_slots, dtype=torch.uint8,
+                                              device=dev), 10)
+        kern_ms = cuda_ms(lambda: stream.stream_backward_pairs(dpair, replayed, *d_args),
+                          10)
+        sum_ms = cuda_ms(lambda: stream.home_class_sum(dpair, replayed, nh, k_slots), 10)
+        sum_k = stream.home_class_sum(dpair, replayed, nh, k_slots)
+        sum_p = stream.home_class_sum_plain(dpair, replayed, nh, k_slots)
+        sum_err = float(((sum_k - sum_p).abs().amax(dim=0)
+                         / sum_p.abs().amax(dim=0).clamp(min=1e-30)).max())
+        check(sum_err <= 1e-6, f"kernel D's class sum: max |Δ|/peak {sum_err} > 1e-6")
+        n_marked = int(replayed.sum())
+        # each mark read once, each marked row once, each home row written
+        bound_s = bound(nbytes(replayed) + (n_marked + nh) * ATT_BYTES, 9 * n_marked)
+        results.append(dict(
+            name="stream_class_sum", route="cuda",
+            source="gsjax_torch/csrc/stream_bwd.cu",
+            replaces="gsjax/render/pallas_stream.py:685",
+            max_abs_err=float((sum_k - sum_p).abs().max()), ms=sum_ms,
+            plain_ms=cuda_ms(lambda: stream.home_class_sum_plain(dpair, replayed, nh,
+                                                                 k_slots), 10),
+            bound_ms=bound_s[0], bound_by=bound_s[1], library_ms=None,
+        ))
+        del dpair, replayed, sum_k, sum_p
+        ms_d = cuda_ms(lambda: stream.stream_backward(*d_args), 10)
+        plain_d = cuda_ms(lambda: stream.stream_backward_plain(*d_args), 2)
         results.append(dict(
             name="stream_backward", route="cuda",
             source="gsjax_torch/csrc/stream_bwd.cu",
             replaces="gsjax/render/pallas_stream.py:685",
-            max_abs_err=err_d,
-            ms=cuda_ms(lambda: stream.stream_backward(*d_args), 10),
-            plain_ms=cuda_ms(lambda: stream.stream_backward_plain(*d_args), 2),
+            max_abs_err=err_d, ms=ms_d, plain_ms=plain_d,
             bound_ms=bound_d[0], bound_by=bound_d[1], library_ms=None,
         ))
-        print(f"# D: {pp_d} pair-pixels replayed; of its wrapper's time, "
-              f"zeroing the per-pair buffer [{nh * k_slots}, 9] and summing its "
-              f"classes take {buf_ms:.3f} ms")
+        print(f"# D: {pp_d} pair-pixels replayed, {work['pair_pixels_live']} live, "
+              f"{work['pair_pixels_included']} included; {n_marked} rows marked; wrapper {ms_d:.3f} ms = zero of the "
+              f"row marks [{nh * k_slots}] {zero_ms:.3f} + blend kernel {kern_ms:.3f} + "
+              f"class-sum kernel {sum_ms:.3f} (against its plain version max |Δ|/peak "
+              f"{sum_err:.1e}); plain {plain_d:.3f} ms; bound {bound_d[0]:.3f} ms "
+              f"({bound_d[1]}) on {card}")
+        print(f"# D's work at view 0 (the plain replay's count, the kernel's grouping: "
+              f"{stream.BWD_PAIRS} pairs reduced together, {stream.BWD_PIXELS} pixels a "
+              f"thread): (warp, pair)s with an included pixel "
+              f"{work['warp_pairs_included']} of {work['warp_pairs']} "
+              f"({work['warp_pairs_included'] / work['warp_pairs']:.3f}); (warp, group)s "
+              f"reduced {work['warp_groups_reduced']} of {work['warp_groups']} visited "
+              f"({work['warp_groups_reduced'] / max(1, work['warp_groups']):.3f}); "
+              f"pair-pixels the warps' stops skipped {work['pair_pixels_stopped']} of "
+              f"{work['pair_pixels']} "
+              f"({work['pair_pixels_stopped'] / max(1, work['pair_pixels']):.3f})")
 
         # 9c. kernel F: the flat backward with the same cotangents, from
         # kernel E's exit state
@@ -934,7 +1009,8 @@ def main() -> int:
                   tiles_y, cfg_flat)
         fk = flat.slots_backward(*f_args)
         fk2 = flat.slots_backward(*f_args)
-        fp = flat.slots_backward_plain(*f_args)
+        work_f = {}
+        fp = flat.slots_backward_plain(*f_args, stats=work_f)
         torch.cuda.synchronize()
         check(torch.equal(fk, fk2), "kernel F: two launches differ (not deterministic)")
         p999, rel_max, err_f, n_rows = grad_diff(fk.view(-1, 9), fp.view(-1, 9))
@@ -961,16 +1037,18 @@ def main() -> int:
         pp_f = replayed_pair_pixels(out_e, starts, cfg)
         bound_f = bound(pp_f // cfg.tile_size ** 2 * ATT_BYTES
                         + nbytes(starts, cbase, out_e, ct_img, ct_T, fk),
-                        OPS_PER_PAIR_PIXEL_F * pp_f)
+                        needed_ops(work_f, OPS_INCLUDED_PAIR_PIXEL_D))
         ms_f = cuda_ms(lambda: flat.slots_backward(*f_args), 10)
-        print(f"# F: {pp_f} pair-pixels replayed; F {ms_f:.3f} ms, D "
-              f"{results[-1]['ms']:.3f} ms; bound {bound_f[0]:.3f} ms ({bound_f[1]})")
+        plain_f = cuda_ms(lambda: flat.slots_backward_plain(*f_args), 2)
+        print(f"# F: {pp_f} pair-pixels replayed, {work_f['pair_pixels_live']} live, "
+              f"{work_f['pair_pixels_included']} included; F {ms_f:.3f} ms (its zeroed output "
+              f"[{fk.shape[0]}, {cfg.chunk}, 9] included), D {ms_d:.3f} ms; plain "
+              f"{plain_f:.3f} ms; bound {bound_f[0]:.3f} ms ({bound_f[1]}) on {card}")
         results.append(dict(
             name="slots_backward", route="cuda",
             source="gsjax_torch/csrc/slots_bwd.cu",
             replaces="gsjax/render/pallas_flat.py:195",
-            max_abs_err=err_f, ms=ms_f,
-            plain_ms=cuda_ms(lambda: flat.slots_backward_plain(*f_args), 2),
+            max_abs_err=err_f, ms=ms_f, plain_ms=plain_f,
             bound_ms=bound_f[0], bound_by=bound_f[1], library_ms=None,
         ))
     del p, ph, layout, bins, att, pid, starts, out, img_t, T_t, img, dk, dk2, dp
@@ -1026,12 +1104,13 @@ def main() -> int:
     key = {"repeat_fat_parents": ("stream", "repeat"), "expand_pairs": ("stream", "expand"),
            "stream_forward": ("stream", "stream_fwd"),
            "stream_backward": ("stream", "stream_bwd"),
+           "stream_class_sum": ("stream", "stream_class_sum"),
            "slots_forward": ("pallas", "slots_fwd"), "slots_backward": ("pallas", "slots_bwd")}
     for r in results:
         backend, counter = key[r["name"]]
         r["launches"] = train[backend]["launches"][counter]
         r["run"] = "its path's training run"
-    results.sort(key=lambda r: list(key).index(r["name"]))  # A-F
+    results.sort(key=lambda r: list(key).index(r["name"]))  # A-F, D's class sum after D
     probe_results.sort(key=lambda r: PROBE_KERNELS.index(r["name"]))  # G-J
     for r in probe_results:
         r["run"] = "its probe's run in phase 11"

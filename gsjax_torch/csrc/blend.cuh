@@ -25,47 +25,61 @@
 //     C ← C·f for every eligible pair (C is the virtual transmittance,
 //     which makes termination sticky);
 //   * at the chunk's end __syncthreads_or(C ≥ eps) decides whether the
-//     tile goes on, so the exit is chunk-granular and C / n_done are the
-//     exit state the backward replays from.
+//     tile goes on, so the exit is chunk-granular: the backward replays
+//     n_done chunks.
 // Output [T, 8, ts·ts] f32 rows: rgb, T_act, C, n_done, 0, 0. A tile with
 // no pairs leaves (0, 0, 0, 1, 1, 0, 0, 0).
 //
-// Backward (blend_bwd_kernel): one block per tile, one thread per pixel,
-// replays the chunks the forward ran in reverse, from k = n_done − 1 down
-// to 0, starting from the forward's exit state (C_exit = out[t, 4],
-// n_done = out[t, 5]) and S = 0:
+// Backward (blend_bwd_kernel): one block per tile, kBwdPixels pixels per
+// thread, replays the chunks the forward ran in the forward's order, k =
+// 0 .. n_done − 1, from the forward's start (C = 1):
 //   * stage the chunk's attributes and gradient rows in shared memory;
-//   * pass 1 recomputes α, eligible and f = 1 − α down the chunk and
-//     rebuilds C_entry = C_exit / max(Π f, 1e-30);
-//   * pass 2 sums v·w over the chunk (v = rgb·ct_img, w = include·T·α,
-//     include = eligible ∧ C_entry·Π_{j≤i} f_j ≥ eps): the suffix sums;
-//   * pass 3 forms, per pair, U = S + (Σ_chunk v·w − Σ_{j≤i} v·w),
-//     dα = include·(v·T − (U + ct_T·T_act)/f), dpow = dα·α and
-//     d_op = dα·G where α is unclamped, and the 9 attribute gradients
-//     (mean2d, conic through dx/dy; rgb = w·ct_img; opacity); a warp sums
-//     them over its 32 pixels with shuffles (skipped when no lane
-//     includes the pair) and the 8 warps' partials are added in warp
-//     order from shared memory;
+//   * each pixel runs the chunk once, with the forward's expressions in
+//     its operand order (the library builds with -fmad=false), so α,
+//     eligible, include and C are the forward's bit for bit. It adds
+//     pre += w·rgb per channel as the forward adds img, and takes the
+//     suffix sum U_i = Σ_{j>i, included} v_j·w_j (v = rgb·ct_img) from the
+//     forward's image, U = ct·(img − pre): at the pixel's last included
+//     pair each difference is exactly 0. Then dα = v·T − (U + ct_T·T_act)
+//     /(1−α), dpow = dα·α and d_op = dα·G where α is unclamped, and the 9
+//     attribute gradients (mean2d, conic through dx/dy; rgb = w·ct_img;
+//     opacity), each thread's pixels added first;
+//   * the 9 sums over a warp's pixels are taken kBwdPairs pairs at a time
+//     by one reduce-scatter (warp_reduce_scatter: 9(P−1) + 9·log2(32/P)
+//     shuffles for P pairs, 54 for 4, where one warp_sum per value cost
+//     45 per pair), skipped when no lane of the warp includes a pair of
+//     the group; the lanes write the sums to the warp's partials in
+//     shared memory, and the warps' partials are added in warp order;
+//   * C only falls, so once every pixel of a warp has C < eps no later
+//     pair of the tile includes any of them: the warp stops there (no α,
+//     no reductions) and records where it stopped (wend); the sum skips
+//     its partials past that point. It still meets the block's barriers;
 //   * the pair's 9 sums go to its gradient row. A row belongs to one pair
 //     of one tile, so no two blocks write one row: no float atomics, and
-//     two launches give the same bits. Rows of pairs never replayed keep
-//     the zeros the wrapper allocated;
-//   * the state becomes (C_entry, S + Σ_chunk v·w).
-// α, eligible and include come from the same expressions, in the same
-// operand order, as the forward's (the library builds with -fmad=false),
-// so the replay makes the forward's decisions; near T ≈ eps the rebuilt
-// include set may still differ by one splat per pixel, as in the
-// reference (gsjax/render/pallas_flat.py, module docstring).
+//     two launches give the same bits. PairRows marks each row it writes
+//     (replayed[pid] = 1, a byte only its pair's block stores), so D's
+//     per-pair buffer needs no zeroing; F's slot rows never replayed keep
+//     the zeros its wrapper allocated.
+// Replaying forward from C = 1 needs no C at a chunk's entry: the reverse
+// replay this replaces rebuilt it by dividing the exit C by the chunk's
+// product, ran the chunk three times (product, Σ v·w, gradients) and
+// could flip a pixel's include decision near T ≈ eps (the reference's
+// Pallas kernels still can, gsjax/render/pallas_flat.py's docstring).
 //
-// Bound on the card: the per-pixel arithmetic (~45 fp32 operations per
-// pair-pixel forward, ~85 backward) for dense tiles, the staging loads
-// (36 bytes per pair) for sparse ones. Threads of a tile read the same
-// shared-memory word at once (a broadcast, no bank conflicts); the per-
-// tile work is imbalanced across blocks, which the 8k-tile grid spreads
-// over the SMs. The backward's three passes recompute the quadratic and
-// fexp (3x the essential fexp work) instead of holding a chunk of per-
-// pixel values, and each included pair costs a warp 45 shuffles; both
-// are the price of keeping every per-pixel quantity in registers.
+// Bound on the card: the per-pixel arithmetic for dense tiles (~39 fp32
+// operations for α and the transmittance wherever the pixel's C ≥ eps
+// before the pair, ~6 more forward and ~46 more backward where the pair
+// is included), the staging loads (36 bytes per pair) for sparse ones.
+// Threads of a tile read the same shared-memory word at once (a
+// broadcast, no bank conflicts); the per-tile work is imbalanced across
+// blocks, which the 8k-tile grid spreads over the SMs. In the backward
+// the reductions over pixels are still the largest part: taking them
+// out of the shipped kernel saves ~40% of its time, the gradient
+// products ~20%, and the replay itself is the rest
+// (gsjax_torch/tools/blend_bwd_variants.py times these ablations).
+// -fmad=false, which the bit-exact replay needs, halves the usable fp32
+// rate of the forward and of the replay, so the backward's gradient
+// products, past every decision, use explicit fused multiply-adds.
 #pragma once
 
 #include "common.cuh"
@@ -80,6 +94,8 @@ struct PairRows {
   const float* att;
   const int* pid;
   int k_slots;
+  // the backward's marks [NH·K]: 1 where it wrote gradient row pid
+  unsigned char* replayed = nullptr;
   // the first row key of tile t, whose segment starts at s0
   __device__ int begin(int /*t*/, int s0) const { return s0; }
   // the gradient row of the pair at position q
@@ -87,6 +103,7 @@ struct PairRows {
   __device__ const float* row(int key) const {
     return att + static_cast<size_t>(key / k_slots) * kAtt;
   }
+  __device__ void mark(int key) const { replayed[key] = 1; }
 };
 
 // Flat backend: the chunk-aligned slot stream [NCB, chunk, 9].
@@ -99,6 +116,7 @@ struct SlotRows {
   __device__ const float* row(int key) const {
     return att_al + static_cast<size_t>(key) * kAtt;
   }
+  __device__ void mark(int /*key*/) const {}  // the slot gradient is zeroed
 };
 
 // stage the chunk's m rows from row key r0 in shared memory (SoA)
@@ -185,6 +203,17 @@ int launch_blend_forward(Rows rows, const int* starts, int n_tiles, int ty0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward's grouping: kBwdPairs consecutive pairs are reduced over
+// a warp's pixels together (a power of two from 2 to 32), and each thread
+// owns kBwdPixels pixels (1, 2 or 4). render/stream.py mirrors both
+// (BWD_PAIRS, BWD_PIXELS).
+constexpr int kBwdPairs = 4;
+constexpr int kBwdPixels = 2;
+static_assert(kBwdPairs >= 2 && kBwdPairs <= 32 && (kBwdPairs & (kBwdPairs - 1)) == 0,
+              "kBwdPairs: a power of two from 2 to 32");
+static_assert(kBwdPixels == 1 || kBwdPixels == 2 || kBwdPixels == 4,
+              "kBwdPixels: 1, 2 or 4");
+
 struct PairTerms {
   float dx, dy, G, raw, alpha;
   bool eligible;
@@ -210,11 +239,45 @@ __device__ __forceinline__ PairTerms pair_terms(const float* sh, int chunk,
   return q;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Sum v[P·kAtt] (pair-major: v[q·kAtt + c] is pair q's gradient c) over
+// the warp's 32 lanes. log2 P halving steps (lanes across offset 16, 8,
+// …, 32/P swap halves, each keeps one half and adds the other's: 9(P−1)
+// shuffles) leave lane l the 9 values of pair l / (32/P), summed over
+// the lanes that share its top bits; a butterfly over the remaining
+// log2(32/P) bits finishes the sums (9·log2(32/P) shuffles), so every
+// lane of pair q's group holds q's 9 sums in v[0..8]. a + b == b + a in
+// IEEE arithmetic, so those lanes hold the same bits.
+__host__ __device__ constexpr int log2i(int x) {
+  return x <= 1 ? 0 : 1 + log2i(x / 2);
+}
+
+template <int P>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[P * kAtt],
+                                                    int lane) {
+  // loops with constant trip counts, fully unrolled, so every index of v
+  // is a constant and v stays in registers
+  constexpr int kHalvings = log2i(P);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;  // lane 0 holds the warp's sum
+  for (int lvl = 0; lvl < kHalvings; ++lvl) {
+    const int off = 16 >> lvl;
+    const int half = (P * kAtt) >> (lvl + 1);
+    const bool hi = (lane & off) != 0;
+#pragma unroll
+    for (int j = 0; j < (P * kAtt) / 2; ++j) {
+      if (j < half) {
+        const float send = hi ? v[j] : v[j + half];
+        const float keep = hi ? v[j + half] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = kHalvings; b < 5; ++b) {
+    const int off = 16 >> b;
+#pragma unroll
+    for (int c = 0; c < kAtt; ++c)
+      v[c] += __shfl_xor_sync(0xffffffffu, v[c], off);
+  }
 }
 
 template <class Rows>
@@ -225,15 +288,20 @@ __global__ void blend_bwd_kernel(Rows rows, const int* __restrict__ starts,
                                  int tiles_x, int ts, int chunk,
                                  float alpha_clamp, float alpha_min,
                                  float eps_T, float* __restrict__ dout) {
+  constexpr int P = kBwdPairs;
+  constexpr int PX = kBwdPixels;
+  constexpr int kLanesPerPair = 32 / P;
   extern __shared__ float sh[];  // [kAtt][chunk] attributes
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int n_px = blockDim.x;
-  const int n_warps = n_px / 32;
+  const int n_thr = blockDim.x;
+  const int n_px = n_thr * PX;
+  const int n_warps = n_thr / 32;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   float* red = sh + kAtt * chunk;  // [n_warps][chunk][kAtt] warp partials
   int* skey = reinterpret_cast<int*>(red + n_warps * chunk * kAtt);  // [chunk]
+  int* wend = skey + chunk;  // [n_warps] pairs [0, wend[w]) warp w reduced
 
   const float* o = fwd + static_cast<size_t>(t) * kRows * n_px;
   const int n_done = static_cast<int>(o[5 * n_px]);  // one value per tile
@@ -241,103 +309,140 @@ __global__ void blend_bwd_kernel(Rows rows, const int* __restrict__ starts,
   const int s0 = starts[t];
   const int count = starts[t + 1] - s0;
   const int r0 = rows.begin(t, s0);
-  const float px = static_cast<float>((t % tiles_x) * ts + tid % ts);
-  const float py = static_cast<float>((t / tiles_x + ty0) * ts + tid / ts);
-  const size_t p = static_cast<size_t>(t) * n_px + tid;
-  const float cr = ct_img[3 * p], cg = ct_img[3 * p + 1], cbl = ct_img[3 * p + 2];
-  const float ctTT = ct_T[p] * o[3 * n_px + tid];  // ct_T · T_act
-  float C = o[4 * n_px + tid];  // transmittance at the exit of chunk k
-  float S = 0.0f;               // Σ v·w over the chunks after k
 
-  for (int k = n_done - 1; k >= 0; --k) {
+  // thread tid owns pixels tid·PX .. tid·PX + PX − 1 (a warp a compact
+  // band of rows, so its pixels tend to finish together)
+  float px[PX], py[PX], cr[PX], cg[PX], cbl[PX], img_r[PX], img_g[PX],
+      img_b[PX], ctTT[PX], C[PX], pre_r[PX], pre_g[PX], pre_b[PX];
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+    const int pix = tid * PX + j;
+    const size_t p = static_cast<size_t>(t) * n_px + pix;
+    px[j] = static_cast<float>((t % tiles_x) * ts + pix % ts);
+    py[j] = static_cast<float>((t / tiles_x + ty0) * ts + pix / ts);
+    cr[j] = ct_img[3 * p];
+    cg[j] = ct_img[3 * p + 1];
+    cbl[j] = ct_img[3 * p + 2];
+    img_r[j] = o[pix];  // the forward's image: Σ over every included pair
+    img_g[j] = o[n_px + pix];
+    img_b[j] = o[2 * n_px + pix];
+    ctTT[j] = ct_T[p] * o[3 * n_px + pix];  // ct_T · T_act
+    C[j] = 1.0f;  // the forward's state, replayed
+    pre_r[j] = pre_g[j] = pre_b[j] = 0.0f;
+  }
+  bool live = true;  // some pixel of the warp may still include a pair
+
+  for (int k = 0; k < n_done; ++k) {
     const int m = min(chunk, count - k * chunk);
     stage_chunk(rows, r0 + k * chunk, m, chunk, sh, skey);
     __syncthreads();
 
-    // pass 1: the chunk's transmittance product → C at its entry
-    float prod = 1.0f;
-    for (int i = 0; i < m; ++i) {
-      const PairTerms q = pair_terms(sh, chunk, i, px, py, alpha_clamp, alpha_min);
-      if (q.eligible) prod = prod * (1.0f - q.alpha);
-    }
-    const float C_entry = C / fmaxf(prod, 1e-30f);
-
-    // pass 2: Σ v·w over the chunk
-    float tot = 0.0f, ex = 1.0f;
-    for (int i = 0; i < m; ++i) {
-      const PairTerms q = pair_terms(sh, chunk, i, px, py, alpha_clamp, alpha_min);
-      const float f = q.eligible ? 1.0f - q.alpha : 1.0f;
-      const float inc = ex * f;
-      if (q.eligible && C_entry * inc >= eps_T) {
-        const float w = C_entry * ex * q.alpha;
-        const float v = cr * sh[5 * chunk + i] + cg * sh[6 * chunk + i] +
-                        cbl * sh[7 * chunk + i];
-        tot = tot + v * w;
-      }
-      ex = inc;
-    }
-
-    // pass 3: the per-pair gradients, summed over the tile's pixels
-    float pre = 0.0f;
-    ex = 1.0f;
-    for (int i = 0; i < m; ++i) {
-      const PairTerms q = pair_terms(sh, chunk, i, px, py, alpha_clamp, alpha_min);
-      const float f = q.eligible ? 1.0f - q.alpha : 1.0f;
-      const float inc = ex * f;
-      const bool include = q.eligible && C_entry * inc >= eps_T;
-      float g[kAtt];
+    int end = 0;
+    for (int i0 = 0; live && i0 < m; i0 += P) {
+      float v[P * kAtt];
 #pragma unroll
-      for (int c = 0; c < kAtt; ++c) g[c] = 0.0f;
-      if (include) {
-        const float T_i = C_entry * ex;
-        const float w = T_i * q.alpha;
-        const float v = cr * sh[5 * chunk + i] + cg * sh[6 * chunk + i] +
-                        cbl * sh[7 * chunk + i];
-        pre = pre + v * w;
-        const float U = S + (tot - pre);
-        const float dalpha = v * T_i - (U + ctTT) / f;
-        if (q.raw < alpha_clamp) {
-          const float ca = sh[2 * chunk + i];
-          const float cb = sh[3 * chunk + i];
-          const float cc = sh[4 * chunk + i];
-          const float dpow = dalpha * q.alpha;
-          g[0] = dpow * (ca * q.dx + cb * q.dy);
-          g[1] = dpow * (cb * q.dx + cc * q.dy);
-          g[2] = dpow * (-0.5f * q.dx * q.dx);
-          g[3] = dpow * (-q.dx * q.dy);
-          g[4] = dpow * (-0.5f * q.dy * q.dy);
-          g[8] = dalpha * q.G;
+      for (int e = 0; e < P * kAtt; ++e) v[e] = 0.0f;
+      bool any = false;  // the lane includes a pair of the group
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int i = i0 + q;
+        // a fixed trip count keeps v[] in registers; past m the stage is stale
+        if (i >= m) continue;  // uniform over the warp
+        const float ca = sh[2 * chunk + i];
+        const float cb = sh[3 * chunk + i];
+        const float cc = sh[4 * chunk + i];
+        const float r = sh[5 * chunk + i];
+        const float g = sh[6 * chunk + i];
+        const float b = sh[7 * chunk + i];
+        // every pixel's α first, free of branches, so a thread's pixels
+        // overlap; then each pixel's include chain
+        PairTerms at[PX];
+#pragma unroll
+        for (int j = 0; j < PX; ++j)
+          at[j] = pair_terms(sh, chunk, i, px[j], py[j], alpha_clamp, alpha_min);
+#pragma unroll
+        for (int j = 0; j < PX; ++j) {
+          const PairTerms& a = at[j];
+          if (!a.eligible) continue;
+          const float f = 1.0f - a.alpha;
+          const float Cn = C[j] * f;
+          if (Cn >= eps_T) {
+            any = true;
+            // the forward's adds, in its order: at the pixel's last
+            // included pair img − pre is exactly 0
+            const float w = C[j] * a.alpha;
+            pre_r[j] += w * r;
+            pre_g[j] += w * g;
+            pre_b[j] += w * b;
+            // from here on no decision depends on the bits: the gradient
+            // products use fused multiply-adds (explicit, since the build
+            // has -fmad=false for the replay's sake)
+            const float vv = __fmaf_rn(cbl[j], b, __fmaf_rn(cg[j], g, cr[j] * r));
+            // U = Σ over the later included pairs of v·w
+            const float U =
+                __fmaf_rn(cbl[j], img_b[j] - pre_b[j],
+                          __fmaf_rn(cg[j], img_g[j] - pre_g[j],
+                                    cr[j] * (img_r[j] - pre_r[j])));
+            const float dalpha = __fmaf_rn(vv, C[j], -((U + ctTT[j]) / f));
+            const int e = q * kAtt;  // a constant once unrolled
+            if (a.raw < alpha_clamp) {
+              const float dpow = dalpha * a.alpha;
+              const float hx = -0.5f * dpow * a.dx;
+              const float hy = -0.5f * dpow * a.dy;
+              v[e] = __fmaf_rn(dpow, __fmaf_rn(ca, a.dx, cb * a.dy), v[e]);
+              v[e + 1] = __fmaf_rn(dpow, __fmaf_rn(cb, a.dx, cc * a.dy), v[e + 1]);
+              v[e + 2] = __fmaf_rn(hx, a.dx, v[e + 2]);
+              v[e + 3] = __fmaf_rn(-dpow * a.dx, a.dy, v[e + 3]);
+              v[e + 4] = __fmaf_rn(hy, a.dy, v[e + 4]);
+              v[e + 8] = __fmaf_rn(dalpha, a.G, v[e + 8]);
+            }
+            v[e + 5] = __fmaf_rn(w, cr[j], v[e + 5]);
+            v[e + 6] = __fmaf_rn(w, cg[j], v[e + 6]);
+            v[e + 7] = __fmaf_rn(w, cbl[j], v[e + 7]);
+          }
+          C[j] = Cn;
         }
-        g[5] = w * cr;
-        g[6] = w * cg;
-        g[7] = w * cbl;
       }
-      ex = inc;
-      float* r = red + (warp * chunk + i) * kAtt;
-      if (__any_sync(0xffffffffu, include)) {
+      // a group no lane includes is all zeros: no shuffles
+      if (__any_sync(0xffffffffu, any)) warp_reduce_scatter<P>(v, lane);
+      const int i = i0 + lane / kLanesPerPair;
+      const int sub = lane % kLanesPerPair;
+      if (i < m) {
+        float* rr = red + (warp * chunk + i) * kAtt;
 #pragma unroll
-        for (int c = 0; c < kAtt; ++c) {
-          const float s = warp_sum(g[c]);
-          if (lane == 0) r[c] = s;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < kAtt; ++c) r[c] = 0.0f;
+        for (int c = 0; c < kAtt; ++c)
+          if (c % kLanesPerPair == sub) rr[c] = v[c];
       }
+      end = min(i0 + P, m);
+      // C only falls: once every pixel of the warp is below eps, no later
+      // pair of the tile includes any of them
+      bool open = false;
+#pragma unroll
+      for (int j = 0; j < PX; ++j) open = open || C[j] >= eps_T;
+      live = __any_sync(0xffffffffu, open);
     }
+    if (lane == 0) wend[warp] = end;
     __syncthreads();
-    for (int e = tid; e < m * kAtt; e += n_px) {
+    // the warps' partials in warp order; a warp that stopped adds nothing
+    for (int e = tid; e < m * kAtt; e += n_thr) {
       const int i = e / kAtt;
       const int c = e - i * kAtt;
       float s = 0.0f;
-      for (int w = 0; w < n_warps; ++w) s += red[(w * chunk + i) * kAtt + c];
+      for (int w = 0; w < n_warps; ++w)
+        if (i < wend[w]) s += red[(w * chunk + i) * kAtt + c];
       dout[static_cast<size_t>(skey[i]) * kAtt + c] = s;
+      if (c == 0) rows.mark(skey[i]);
     }
-    C = C_entry;
-    S = S + tot;
-    // the next chunk's staging overwrites sh, red and skey
+    // the next chunk's staging overwrites sh, red, skey and wend
     __syncthreads();
   }
+}
+
+// shared memory of the backward: the chunk's attributes and keys, the
+// warps' partials and their ends
+inline size_t blend_bwd_smem(int n_px, int chunk) {
+  const int n_warps = n_px / (32 * kBwdPixels);
+  return sizeof(float) * (kAtt * chunk + n_warps * chunk * kAtt + chunk + n_warps);
 }
 
 template <class Rows>
@@ -348,15 +453,14 @@ int launch_blend_backward(Rows rows, const int* starts, const float* fwd,
                           float* dout, void* stream) {
   if (n_tiles > 0) {
     const int n_px = ts * ts;
-    const size_t smem =
-        sizeof(float) * (kAtt * chunk + (n_px / 32) * chunk * kAtt + chunk);
+    const size_t smem = blend_bwd_smem(n_px, chunk);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           blend_bwd_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    blend_bwd_kernel<Rows><<<n_tiles, n_px, smem,
+    blend_bwd_kernel<Rows><<<n_tiles, n_px / kBwdPixels, smem,
                              static_cast<cudaStream_t>(stream)>>>(
         rows, starts, fwd, ct_img, ct_T, ty0, tiles_x, ts, chunk, alpha_clamp,
         alpha_min, eps_T, dout);

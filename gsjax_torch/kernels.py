@@ -14,7 +14,9 @@ rebuilds its library, an unchanged one loads the cached file.
 and expansion kernels must round exactly as their plain PyTorch versions
 do (an FMA-contracted `a·x·x + 2·b·x·y + c·y·y` flips borderline pairs),
 and the blend kernels' `fexp` must be the reference polynomial op for op
-(the backward kernel remakes the forward's include decisions from it).
+(the backward kernel remakes the forward's include decisions from it;
+its gradient products, where no decision depends on the bits, use
+explicit fused multiply-adds).
 Never build with --use_fast_math.
 
 LAUNCHES counts, per kernel, the launches its wrapper made; a run zeroes
@@ -47,8 +49,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0, "stream_bwd": 0,
-            "slots_fwd": 0, "slots_bwd": 0, "probe_mosaic": 0, "probe_compact": 0,
-            "probe_scalars": 0, "probe_chunk": 0}
+            "stream_class_sum": 0, "slots_fwd": 0, "slots_bwd": 0, "probe_mosaic": 0,
+            "probe_compact": 0, "probe_scalars": 0, "probe_chunk": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # library → its C entry points: (argtypes); each returns
@@ -65,9 +67,11 @@ _SIGNATURES = {"path": {
     "gsjax_stream_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                              _F, _P, _P),
     # att, pid, starts, fwd, ct_img, ct_T, n_tiles, ty0, tiles_x, ts, chunk,
-    # k_slots, alpha_clamp, alpha_min, eps_T, dpair, stream
+    # k_slots, alpha_clamp, alpha_min, eps_T, dpair, replayed, stream
     "gsjax_stream_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _F, _F, _F, _P, _P),
+                              _I, _F, _F, _F, _P, _P, _P),
+    # dpair, replayed, nh, k_slots, d_home, stream
+    "gsjax_stream_class_sum": (_P, _P, _I, _I, _P, _P),
     # att_al, starts, cbase, n_tiles, ty0, tiles_x, ts, chunk, alpha_clamp,
     # alpha_min, eps_T, out, stream
     "gsjax_slots_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P,
@@ -114,48 +118,71 @@ def library_path(library: str = "path") -> str:
     return os.path.join(BUILD_DIR, f"libgsjax_torch_{library}_{h.hexdigest()[:16]}.so")
 
 
-def _run_all(cmds) -> None:
-    """Start every nvcc command at once, wait for all, raise on a failure."""
+def _run_all(cmds) -> list:
+    """Start every nvcc command at once, wait for all, raise on a failure;
+    returns each command's standard error."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for c in cmds]
+    errs = []
     for cmd, p in zip(cmds, procs):
         out, err = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}\n{err}"
             )
+        errs.append(err)
+    return errs
+
+
+def compile_library(csrc: str, sources, path: str) -> None:
+    """Compile `sources` (files in the directory `csrc`) into the shared
+    library `path`: one nvcc per source, all started together, then one
+    link, in a scratch directory, so a concurrent or cut build never
+    leaves a half-written library under the final name. ptxas's report
+    (registers, stack frame, spills per kernel) goes to ptxas_log(path)."""
+    build_dir = os.path.dirname(path)
+    os.makedirs(build_dir, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        objs = [os.path.join(tmp, f"{src}.o") for src in sources]
+        errs = _run_all([[nvcc, *NVCC_FLAGS, "--ptxas-options=-v", "-c", "-o", obj,
+                          os.path.join(csrc, src)] for src, obj in zip(sources, objs)])
+        so = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
+        with open(ptxas_log(path), "w") as fh:
+            fh.write("".join(f"== {src}\n{err}" for src, err in zip(sources, errs)))
+        os.replace(so, path)
 
 
 def build(library: str = "path") -> str:
     """Compile the library ("path" or "probes") if its hashed file is
-    missing; returns its path. One nvcc per source, all started together,
-    then one link, in a scratch directory: a concurrent or cut build never
-    leaves a half-written library under the final name."""
+    missing; returns its path."""
     path = library_path(library)
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    sources = SOURCES[library]
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, f"{src}.o") for src in sources]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
-                  for src, obj in zip(sources, objs)])
-        so = os.path.join(tmp, "lib.so")
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]])
-        os.replace(so, path)
+    if not os.path.exists(path):
+        compile_library(CSRC, SOURCES[library], path)
     return path
+
+
+def ptxas_log(path: str) -> str:
+    """The file beside a built library that holds ptxas's report."""
+    return path[: -len(".so")] + ".ptxas.txt"
+
+
+def load(path: str, signatures: dict) -> ctypes.CDLL:
+    """The shared library at `path`, its entry points {name: argtypes}
+    typed (each returns an int)."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in signatures.items():
+        fn = getattr(handle, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return handle
 
 
 def lib(library: str = "path") -> ctypes.CDLL:
     """The loaded kernel library ("path" or "probes"), built on first use."""
     if library not in _libs:
-        handle = ctypes.CDLL(build(library))
-        for name, argtypes in _SIGNATURES[library].items():
-            fn = getattr(handle, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _libs[library] = handle
+        _libs[library] = load(build(library), _SIGNATURES[library])
     return _libs[library]
 
 

@@ -187,12 +187,13 @@ def slots_forward(att_al, starts, cbase, tile_of, ty0: int, tiles_x: int,
 
 def slots_backward_plain(att_al, starts, cbase, tile_of, ty0: int, fwd_out,
                          ct_img, ct_T, tiles_x: int, band_rows: int,
-                         cfg: RenderConfig):
+                         cfg: RenderConfig, stats: dict | None = None):
     """Plain PyTorch version of kernel F (same contract as
-    slots_backward)."""
+    slots_backward). `stats`: blend_backward_plain's counts of the
+    kernel's work."""
     del tile_of, band_rows
     datt = blend_backward_plain(slot_rows(att_al, cbase, cfg), att_al.shape[0] * cfg.chunk,
-                                starts, fwd_out, ct_img, ct_T, ty0, tiles_x, cfg)
+                                starts, fwd_out, ct_img, ct_T, ty0, tiles_x, cfg, stats)
     return datt.view(att_al.shape)
 
 
@@ -201,8 +202,8 @@ def slots_backward(att_al, starts, cbase, tile_of, ty0: int, fwd_out, ct_img,
     """VJP of slots_forward (pallas_flat._bwd_call's arguments, with the
     port's cotangent layout): datt [NCB, chunk, 9] f32 for the cotangents
     ct_img [T, ts², 3] and ct_T [T, ts²] of the blend's img and T_act,
-    given the forward's inputs and its output fwd_out [T, 8, ts²] (row 4
-    the exit C, row 5 n_done). Slots at or past a tile's n_done, padded
+    given the forward's inputs and its output fwd_out [T, 8, ts²] (the
+    replay reads the image, rows 0-2, T_act, row 3, and n_done, row 5). Slots at or past a tile's n_done, padded
     lanes and dead slots read 0.
 
     Kernel F, csrc/slots_bwd.cu; replaces the TPU kernel

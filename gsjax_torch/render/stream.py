@@ -13,15 +13,18 @@ pair stream front to back in chunks of cfg.chunk pairs:
   every pixel's C < eps.
 
 The backward is the reference's hand-derived VJP (pallas_flat.py's module
-docstring): chunks replay in reverse from the forward's exit state (C and
-n_done), C at a chunk's entry is rebuilt by division, and
+docstring),
 
   dL/dα_i = v_i·T_i − (U_i + ct_T·T_act)/(1−α_i),  v_i = rgb_i·ct_img,
   U_i = Σ_{j>i} v_j·w_j,
 
-chained to mean2d, conic, rgb and opacity per pair. Near T ≈ eps the
-rebuilt include set may differ from the forward's by one splat per pixel,
-as in the reference.
+chained to mean2d, conic, rgb and opacity per pair. It replays the
+forward's n_done chunks in the forward's order from C = 1 with the
+forward's expressions, so its include decisions are the forward's, and
+takes U_i from the forward's image: U_i = ct_img·(img − Σ_{j≤i} w_j·rgb_j).
+(The reference replays in reverse from the exit state and rebuilds C at a
+chunk's entry by division, which may flip one splat per pixel near T ≈
+eps.)
 
 Kernel C (`stream_forward`, csrc/stream_fwd.cu) replaces the TPU kernel
 gsjax/render/pallas_stream.py::_stream_fwd_kernel, kernel D
@@ -46,6 +49,9 @@ from gsjax_torch.render.fastmath import fexp
 
 FWD_ROWS = 8  # img(3), T_act, C, n_done, spare(2)
 _PLAIN_TILE_BATCH = 256  # tiles per batch of the plain blend
+# the backward kernel's grouping (csrc/blend.cuh: kBwdPairs, kBwdPixels):
+# pairs reduced together over a warp's pixels, pixels per thread
+BWD_PAIRS, BWD_PIXELS = 4, 2
 
 
 def pair_rows(att, pid, starts, cfg: RenderConfig):
@@ -156,10 +162,12 @@ def check_kernel_args(name: str, cfg: RenderConfig, att, shapes_ok: bool,
     for (what, shape), x in zip(shapes.items(), cotangents):
         if tuple(x.shape) != shape or x.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32 {what} {shape}")
-    smem = 4 * cfg.chunk * (9 + (n_px // 32) * 9 + 1)
-    if n_px % 32 or n_px > 1024 or smem > 227 * 1024:
-        raise ValueError(f"{name}: tile_size² must be a multiple of 32 up to "
-                         "1024, and the chunk's partial sums fit 227 KB")
+    warp_px = 32 * BWD_PIXELS
+    n_warps = n_px // warp_px
+    smem = 4 * (cfg.chunk * (9 + n_warps * 9 + 1) + n_warps)  # blend_bwd_smem
+    if n_px % warp_px or n_px > 1024 or smem > 227 * 1024:
+        raise ValueError(f"{name}: tile_size² must be a multiple of {warp_px} up "
+                         "to 1024, and the chunk's partial sums fit 227 KB")
 
 
 def stream_forward_plain(att, pid, starts, ty0: int, tiles_x: int,
@@ -202,15 +210,27 @@ def stream_forward(att, pid, starts, ty0: int, tiles_x: int, cfg: RenderConfig):
 
 
 def blend_backward_plain(rows, n_keys: int, starts, fwd_out, ct_img, ct_T,
-                         ty0: int, tiles_x: int, cfg: RenderConfig):
+                         ty0: int, tiles_x: int, cfg: RenderConfig,
+                         stats: dict | None = None):
     """The plain VJP of blend_forward_plain, kernels D's and F's: each
     replayed pair's 9 gradients in row `key` of a buffer [n_keys, 9]
     (rows(t, k, valid) → (a, key), as for the forward; rows no replayed
     pair reaches stay 0). Tiles go in batches of similar chunk counts
     (sorted by n_done, as the forward batches by pair count); each batch
-    replays its chunks in reverse, tiles leaving once their chunks are
-    done. The products and sums down a chunk run in the kernels' order
-    (cumprod, cumsum)."""
+    replays its chunks in the forward's order from C = 1 with the
+    forward's expressions (cumprod of f down a chunk), so the include
+    decisions are the forward's, tiles leaving once their chunks are
+    done. The suffix sums U come from the forward's image (fwd_out rows
+    0-2) less the running sums of w·rgb (a cumsum per channel).
+
+    `stats`, where given, is filled with counts of the kernels' work
+    under their grouping (BWD_PAIRS pairs reduced together over a warp
+    of 32·BWD_PIXELS pixels, a warp stopping once its pixels' C < eps):
+    the replayed (warp, pair)s and those with an included pixel, the
+    (warp, group)s the warps visited and those they reduced, the
+    replayed pair-pixels and those the stops skipped; and the pair-pixels
+    the VJP needs: those before each pixel's C < eps, and the included
+    ones."""
     dev = fwd_out.device
     ts, chunk = cfg.tile_size, cfg.chunk
     n_px = ts * ts
@@ -224,6 +244,9 @@ def blend_backward_plain(rows, n_keys: int, starts, fwd_out, ct_img, ct_T,
     lane = torch.arange(chunk, device=dev)
     eps = cfg.transmittance_eps
     dout = torch.zeros((n_keys, 9), dtype=torch.float32, device=dev)
+    if stats is not None:
+        for name in _STATS:
+            stats.setdefault(name, 0)
 
     for b0 in range(0, n_busy, _PLAIN_TILE_BATCH):
         tb = order[b0:b0 + _PLAIN_TILE_BATCH]
@@ -232,10 +255,11 @@ def blend_backward_plain(rows, n_keys: int, starts, fwd_out, ct_img, ct_T,
         px = ((tb % tiles_x) * ts).to(torch.float32)[:, None] + pxl
         py = ((tb // tiles_x + ty0) * ts).to(torch.float32)[:, None] + pyl
         ct = ct_img[tb]  # [b, n_px, 3]
+        img = fwd_out[tb, 0:3].transpose(1, 2)  # the forward's image [b, n_px, 3]
         ctTT = ct_T[tb] * fwd_out[tb, 3]  # ct_T · T_act
-        C = fwd_out[tb, 4].clone()  # transmittance at the exit of chunk k
-        S = torch.zeros_like(C)  # Σ v·w over the chunks after k
-        for k in range(int(nd_sorted[b0]) - 1, -1, -1):
+        C = torch.ones((tb.shape[0], n_px), dtype=torch.float32, device=dev)
+        pre = torch.zeros((tb.shape[0], n_px, 3), dtype=torch.float32, device=dev)
+        for k in range(int(nd_sorted[b0])):
             act = torch.nonzero(k < nd).squeeze(1)
             pos = k * chunk + lane
             valid = pos[None, :] < cnt[act, None]  # [b, chunk]
@@ -251,16 +275,17 @@ def blend_backward_plain(rows, n_keys: int, starts, fwd_out, ct_img, ct_T,
             f = torch.where(eligible, 1.0 - alpha, 1.0)
             incl = torch.cumprod(f, dim=-1)
             excl = torch.cat([torch.ones_like(incl[..., :1]), incl[..., :-1]], dim=-1)
-            C_entry = (C[act] / torch.clamp(incl[..., -1], min=1e-30))[..., None]
-            include = eligible & (C_entry * incl >= eps)
-            T_i = C_entry * excl
+            C0 = C[act][:, :, None]
+            include = eligible & (C0 * incl >= eps)  # the forward's decisions
+            T_i = C0 * excl
             w = torch.where(include, T_i * alpha, 0.0)
             cta = ct[act][:, :, None, :]  # [b, n_px, 1, 3]
             v = (cta[..., 0] * a[..., 5] + cta[..., 1] * a[..., 6]
                  + cta[..., 2] * a[..., 7])
-            pre = torch.cumsum(v * w, dim=-1)
-            tot = pre[..., -1:]
-            U = S[act][..., None] + (tot - pre)
+            # U = Σ_{j>i} v_j·w_j = ct · (img − Σ_{j≤i} w_j·rgb_j)
+            pre_c = pre[act][:, :, None, :] + torch.stack(
+                [torch.cumsum(w * a[..., 5 + c], dim=-1) for c in range(3)], dim=-1)
+            U = ((img[act][:, :, None, :] - pre_c) * cta).sum(dim=-1)
             dalpha = torch.where(include, v * T_i - (U + ctTT[act][..., None]) / f, 0.0)
             unclamped = raw < cfg.alpha_clamp
             dpow = torch.where(unclamped, dalpha * alpha, 0.0)
@@ -282,19 +307,54 @@ def blend_backward_plain(rows, n_keys: int, starts, fwd_out, ct_img, ct_T,
                 dim=-1,
             )
             dout[key[valid]] = datt[valid]
-            C[act] = C_entry[..., 0]
-            S[act] = S[act] + tot[..., 0]
+            if stats is not None:
+                _count_work(stats, include, T_i, valid, eps)
+            C[act] = (C0 * incl)[..., -1]
+            pre[act] = pre_c[:, :, -1]
     return dout
 
 
+_STATS = ("warp_pairs", "warp_pairs_included", "warp_groups", "warp_groups_reduced",
+          "pair_pixels", "pair_pixels_stopped", "pair_pixels_live",
+          "pair_pixels_included")
+
+
+def _count_work(stats: dict, include, T_i, valid, eps: float) -> None:
+    """Add one chunk's counts to blend_backward_plain's `stats`: include
+    and T_i (C before each pair) [b, n_px, chunk], valid [b, chunk]; the
+    chunk a multiple of BWD_PAIRS. Besides the kernels' work, the work
+    the function needs: the pair-pixels before the pixel's C < eps (live:
+    α and the transmittance) and the included ones (the gradients)."""
+    b, n_px, chunk = include.shape
+    warp_px, p = 32 * BWD_PIXELS, BWD_PAIRS
+    nw, ng = n_px // warp_px, chunk // p
+    m = valid.sum(dim=1)  # [b] pairs in the chunk
+    wp = include.reshape(b, nw, warp_px, chunk).any(dim=2) & valid[:, None, :]
+    # a warp visits group g iff some pixel's C ≥ eps before its first pair
+    live = (T_i[..., ::p] >= eps).reshape(b, nw, warp_px, ng).any(dim=2)
+    g_valid = (torch.arange(ng, device=m.device) * p)[None, :] < m[:, None]  # [b, ng]
+    g_pairs = torch.clamp(m[:, None] - torch.arange(ng, device=m.device) * p, 0, p)
+    visited = live & g_valid[:, None, :]
+    stats["warp_pairs"] += int(m.sum()) * nw
+    stats["warp_pairs_included"] += int(wp.sum())
+    stats["warp_groups"] += int(visited.sum())
+    stats["warp_groups_reduced"] += int((wp.view(b, nw, ng, p).any(dim=3) & visited).sum())
+    stats["pair_pixels"] += int(m.sum()) * n_px
+    stats["pair_pixels_stopped"] += int(((~live) * g_pairs[:, None, :]).sum()) * warp_px
+    stats["pair_pixels_live"] += int(((T_i >= eps) & valid[:, None, :]).sum())
+    stats["pair_pixels_included"] += int(include.sum())
+
+
 def stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
-                          tiles_x: int, cfg: RenderConfig):
+                          tiles_x: int, cfg: RenderConfig, stats: dict | None = None):
     """Plain PyTorch version of kernel D (same contract as
     stream_backward): each pair's gradients land in row pid of a per-pair
-    buffer that is summed per home row, as in the kernel's wrapper."""
+    buffer that is summed per home row, as in the kernel's wrapper.
+    `stats`: blend_backward_plain's counts of the kernel's work."""
     nh, k_slots = att.shape[0], cfg.tile_span * cfg.tile_span
     dpair = blend_backward_plain(pair_rows(att, pid, starts, cfg), nh * k_slots,
-                                 starts, fwd_out, ct_img, ct_T, ty0, tiles_x, cfg)
+                                 starts, fwd_out, ct_img, ct_T, ty0, tiles_x, cfg,
+                                 stats)
     return dpair.view(nh, k_slots, 9).sum(dim=1)
 
 
@@ -302,33 +362,76 @@ def stream_backward(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,
                     tiles_x: int, cfg: RenderConfig):
     """VJP of stream_forward: d_att [NH, 9] f32 for the cotangents ct_img
     [T, ts², 3] and ct_T [T, ts²] (of the blend's img and T_act), given
-    the forward's inputs and its output fwd_out [T, 8, ts²] (row 4 the
-    exit C, row 5 n_done: the state the chunks replay from).
+    the forward's inputs and its output fwd_out [T, 8, ts²] (the replay
+    reads the image, rows 0-2, T_act, row 3, and n_done, row 5).
 
-    Kernel D, csrc/stream_bwd.cu; replaces the TPU kernel
+    Kernel D, csrc/stream_bwd.cu (the blend backward, then the class sum); replaces the TPU kernel
     gsjax/render/pallas_stream.py::_stream_bwd_kernel. CPU tensors take
     the plain version; CUDA tensors launch the kernel (there is no
     fallback)."""
     if att.device.type == "cpu":
         return stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T,
                                      ty0, tiles_x, cfg)
+    nh, k_slots = att.shape[0], cfg.tile_span * cfg.tile_span
+    # the kernel writes and marks the rows of the pairs it replays; the
+    # class sum reads only those, so dpair is never zeroed
+    dpair = torch.empty((nh * k_slots, 9), dtype=torch.float32, device=att.device)
+    replayed = torch.zeros(nh * k_slots, dtype=torch.uint8, device=att.device)
+    stream_backward_pairs(dpair, replayed, att, pid, starts, fwd_out, ct_img, ct_T,
+                          ty0, tiles_x, cfg)
+    return home_class_sum(dpair, replayed, nh, k_slots)
+
+
+def stream_backward_pairs(dpair, replayed, att, pid, starts, fwd_out, ct_img, ct_T,
+                          ty0: int, tiles_x: int, cfg: RenderConfig) -> None:
+    """Kernel D's blend: each replayed pair's 9 gradients into row pid of
+    dpair [NH·K, 9] f32, and replayed[pid] = 1 (uint8 [NH·K], zeroed by
+    the caller); other rows are left as they are. Contiguous tensors on
+    the card."""
     n_tiles = starts.shape[0] - 1
     k_slots = cfg.tile_span * cfg.tile_span
     check_kernel_args("stream_backward", cfg, att, att.dim() == 2, n_tiles,
                       (pid, starts), (fwd_out, ct_img, ct_T))
+    n_rows = att.shape[0] * k_slots
+    if (dpair.shape != (n_rows, 9) or dpair.dtype != torch.float32
+            or replayed.shape != (n_rows,) or replayed.dtype != torch.uint8
+            or not (dpair.is_contiguous() and replayed.is_contiguous())):
+        raise ValueError("stream_backward: expected contiguous float32 dpair "
+                         "[NH·K, 9] and uint8 replayed [NH·K]")
     att, pid, starts = att.contiguous(), pid.contiguous(), starts.contiguous()
     fwd_out, ct_img, ct_T = fwd_out.contiguous(), ct_img.contiguous(), ct_T.contiguous()
-    nh = att.shape[0]
-    dpair = torch.zeros((nh * k_slots, 9), dtype=torch.float32, device=att.device)
     err = kernels.lib().gsjax_stream_backward(
         att.data_ptr(), pid.data_ptr(), starts.data_ptr(), fwd_out.data_ptr(),
         ct_img.data_ptr(), ct_T.data_ptr(), n_tiles, ty0, tiles_x,
         cfg.tile_size, cfg.chunk, k_slots, cfg.alpha_clamp, cfg.alpha_min,
-        cfg.transmittance_eps, dpair.data_ptr(), kernels.stream_ptr(att),
+        cfg.transmittance_eps, dpair.data_ptr(), replayed.data_ptr(),
+        kernels.stream_ptr(att),
     )
     kernels.check(err, "stream_backward")
     kernels.LAUNCHES["stream_bwd"] += 1
-    return dpair.view(nh, k_slots, 9).sum(dim=1)
+
+
+def home_class_sum_plain(dpair, replayed, nh: int, k_slots: int):
+    """Plain version of home_class_sum."""
+    rows = torch.where(replayed.view(nh, k_slots, 1).bool(), dpair.view(nh, k_slots, 9), 0.0)
+    return rows.sum(dim=1)
+
+
+def home_class_sum(dpair, replayed, nh: int, k_slots: int):
+    """d_home [NH, 9]: each home row's sum of its K class rows of dpair
+    [NH·K, 9], over the rows replayed [NH·K] marks (the others may hold
+    anything). Kernel D's second kernel (csrc/stream_bwd.cu,
+    class_sum_kernel), launched by stream_backward; CPU tensors take the
+    plain version."""
+    if dpair.device.type == "cpu":
+        return home_class_sum_plain(dpair, replayed, nh, k_slots)
+    d_home = torch.empty((nh, 9), dtype=torch.float32, device=dpair.device)
+    err = kernels.lib().gsjax_stream_class_sum(
+        dpair.data_ptr(), replayed.data_ptr(), nh, k_slots, d_home.data_ptr(),
+        kernels.stream_ptr(dpair))
+    kernels.check(err, "stream_backward (class sum)")
+    kernels.LAUNCHES["stream_class_sum"] += 1
+    return d_home
 
 
 class _BlendStream(torch.autograd.Function):

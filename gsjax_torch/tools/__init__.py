@@ -13,6 +13,12 @@ Each runs on the card by default and prints device times taken between
 CUDA events, beside the card's name and power limit; `--device cpu` runs
 the plain versions and prints host-clock times, which say nothing of the
 card. This module holds what the four share.
+
+    python -m gsjax_torch.tools.blend_bwd_variants         # D, F variants
+
+builds edited copies of the blend backward (kernels D and F: other
+groupings, ablations) and times them at the bonsai 1080p orbit's view 0,
+on the card only.
 """
 
 from __future__ import annotations

@@ -112,7 +112,9 @@ def test_gather_pair_attrs_vjp_matches_gsjax():
 
 def _scene_inputs(name):
     """A scene's home rows and pair stream at 96×64, chunk 32:
-    test_torch_train.py's thin scene, or its fat-splat scene."""
+    test_torch_train.py's thin scene, or its fat-splat scene; a name
+    "fat_eps0.2" sets transmittance_eps to 0.2."""
+    name, _, eps = name.partition("_eps")
     rng = np.random.default_rng(0)
     if name == "thin":
         g = make_random_scene(rng, n=300, sh_degree=1, spread=1.2, z_range=(3.0, 8.0))
@@ -121,7 +123,8 @@ def _scene_inputs(name):
         g = dataclasses.replace(g, log_scales=g.log_scales + 2.0)
     gp = gt.Gaussians.from_numpy(*(np.asarray(getattr(g, f)) for f in _FIELDS), device="cpu")
     cam = gt.Camera.create(fx=80.0, fy=80.0, width=W, height=H, device="cpu")
-    cfg = gt.RenderConfig(backend="pallas", chunk=CHUNK, fat_max_blocks=64, fat_cap=2048)
+    cfg = gt.RenderConfig(backend="pallas", chunk=CHUNK, fat_max_blocks=64, fat_cap=2048,
+                          **({"transmittance_eps": float(eps)} if eps else {}))
     with torch.no_grad():
         ph, layout = build_home_layout(project(gp, cam, cfg), cam, cfg)
         bins = build_tile_bins(ph, cam, cfg, anchor="home", layout=layout)
@@ -137,17 +140,21 @@ def _cotangents(n_tiles, seed=4):
     return ct_img, ct_T
 
 
-@pytest.mark.parametrize("name", ["thin", "fat"])
+@pytest.mark.parametrize("name", ["thin", "fat", "fat_eps0.05", "fat_eps0.2"])
 def test_slots_backward_matches_autograd_of_forward(name):
-    """Kernel F's plain version (the hand-derived VJP, replayed from E's
-    exit state) against autograd through kernel E's plain version, with
-    random cotangents on both outputs (ct_T reaches the ct_T·T_act term);
-    test_torch_train.py's bounds for the stream backward."""
+    """Kernel F's plain version (the hand-derived VJP, replayed in the
+    forward's order) against autograd through kernel E's plain version,
+    with random cotangents on both outputs (ct_T reaches the ct_T·T_act
+    term); test_torch_train.py's bounds for the stream backward. The fat
+    scene runs also with transmittance_eps raised to 0.05 and 0.2, where
+    many pixels end near T ≈ eps."""
     att, pid, starts, bins, cfg = _scene_inputs(name)
     att_al, tile_of, cbase = flat.chunked_pair_attrs(att, pid, starts, cfg, K)
     att_al = att_al.detach().requires_grad_()
     args = (starts, cbase, tile_of, 0)
     out = flat.slots_forward_plain(att_al, *args, bins.tiles_x, bins.band_rows, cfg)
+    if "_eps" in name:  # many pixels terminate
+        assert float((out[:, 4] < cfg.transmittance_eps).float().mean()) > 0.3
     ct_img, ct_T = _cotangents(out.shape[0])
     (d_auto,) = torch.autograd.grad(
         (out[:, 0:3].transpose(1, 2) * ct_img).sum() + (out[:, 3] * ct_T).sum(), att_al)

@@ -130,27 +130,33 @@ def test_render_grads_match_gsjax_xla(ref, name, backend):
         assert np.abs(grads["sh"][fat] - a).max() <= 5e-3 * np.abs(a).max()
 
 
-@pytest.mark.parametrize("name", ["thin", "fat"])
+@pytest.mark.parametrize("name", ["thin", "fat", "fat_eps0.05", "fat_eps0.2"])
 def test_stream_backward_matches_autograd_of_forward(name):
-    """Kernel D's plain version (the hand-derived VJP, replayed from the
-    exit state) against autograd through kernel C's plain version, with
-    random cotangents on both outputs: the transmittance's cotangent ct_T
-    is 0 in every render loss with the default black background, so only
-    this test reaches the ct_T·T_act term."""
+    """Kernel D's plain version (the hand-derived VJP, replayed in the
+    forward's order) against autograd through kernel C's plain version,
+    with random cotangents on both outputs: the transmittance's cotangent
+    ct_T is 0 in every render loss with the default black background, so
+    only this test reaches the ct_T·T_act term. The fat scene runs also
+    with transmittance_eps raised to 0.05 and 0.2, where many pixels end
+    near T ≈ eps."""
     from gsjax_torch.render.binning import build_tile_bins
     from gsjax_torch.render.composite import att_table, clipped_pair_stream
     from gsjax_torch.render.stream import stream_backward, stream_forward_plain
 
+    scene, _, eps = name.partition("_eps")
     cam = gt.Camera.create(**CAM, device="cpu")
-    cfg = gt.RenderConfig(chunk=32, **KW)
+    cfg = gt.RenderConfig(chunk=32, **KW,
+                          **({"transmittance_eps": float(eps)} if eps else {}))
     with torch.no_grad():
-        ph, layout = ths.build_home_layout(project(to_torch(_scene(name)[0]), cam, cfg),
+        ph, layout = ths.build_home_layout(project(to_torch(_scene(scene)[0]), cam, cfg),
                                            cam, cfg)
         bins = build_tile_bins(ph, cam, cfg, anchor="home", layout=layout)
     pid, starts, _ = clipped_pair_stream(bins, cfg)
     tiles_x = cfg.tiles_x(W)
     att = att_table(ph).requires_grad_()
     out = stream_forward_plain(att, pid, starts, 0, tiles_x, cfg)
+    if eps:  # many pixels terminate
+        assert float((out[:, 4] < cfg.transmittance_eps).float().mean()) > 0.3
     rng = np.random.default_rng(4)
     ct_img = torch.from_numpy(rng.normal(size=(out.shape[0], 256, 3)).astype(np.float32))
     ct_T = torch.from_numpy(rng.normal(size=(out.shape[0], 256)).astype(np.float32))

@@ -8,7 +8,10 @@ Phases (any failure exits non-zero; there is no CPU path):
   1. device  — require CUDA; print the card's name and power limit;
   2. build   — compile the ten CUDA kernels from gsjax_torch/csrc: the
                path's library (A-F) and the probes' (G-J), side by side,
-               every nvcc at once, each library's time printed;
+               every nvcc at once, each library's time printed; beside
+               them the forward's `baseline` variant (tools/
+               blend_fwd_variants: C and E with one pixel per thread, no
+               strip cull and no warp stop: the full walk);
   3. scene   — bonsai_like(n=1,200,000, seed=0, sh_degree=0) on cuda:0;
   4. cameras — bench.py's 1080p orbit: 30 views over 30° of azimuth;
   5. config  — chunk 128, fat_cap 2,342,912, fat_live_cap 1,617,920 (the
@@ -17,15 +20,24 @@ Phases (any failure exits non-zero; there is no CPU path):
                with backend "pallas", the flat slot-stream path;
   6. kernels — on view 0, each kernel against its plain PyTorch version
                at the path's shapes: repeat (A) and expand (B) bit-equal,
-               the stream blend (C) within 2e-5 at the 99.9th percentile;
-               times of both;
+               the stream blend (C) within 2e-5 at the 99.9th percentile,
+               and bit-equal to the baseline variant (rows 0-3 and 5; the
+               exit C, row 4, wherever the baseline's is ≥ eps, below eps
+               in both elsewhere); times; the forward's work at view 0 as
+               the plain replay counts it under the kernel's warp
+               rectangles ((warp, pair)s the strip cull keeps, pair-pixels
+               evaluated, culled, skipped by the warps' stops) and the
+               work the blend needs (live, eligible and included pair-
+               pixels: C's and E's bounds count eligible and included);
   6c. kernel E — the flat blend on view 0's slot stream against its plain
-               version with C's bounds, and against C on the same pairs
-               (max |Δ|, bit-equal or not); times, bound, slot counts;
+               version with C's bounds, bit-equal to the baseline variant
+               as C, and against C on the same pairs (max |Δ|, bit-equal
+               or not); times, bound, slot counts;
   6b. edges  — small scenes with the cases the bonsai view lacks (empty
                tiles, an image that is no multiple of the tile size,
                counted fat overflow), both backends: the card's kernel
-               path against the CPU's plain path;
+               path against the CPU's plain path, and C or E against the
+               baseline variant on the scene's blend inputs as in 6;
   7. serve   — zero the launch counters, render views 0-3 through
                render_trajectory, read the counters: A, B and C launched
                once per frame, no other kernel; frames finite; every
@@ -49,8 +61,8 @@ Phases (any failure exits non-zero; there is no CPU path):
                plain replay counts it under the kernel's grouping ((warp,
                pair)s with an included pixel, groups reduced, pair-pixels
                the warps' stops skip) beside the work the VJP needs (the
-               live and the included pair-pixels, which set the bounds of
-               C, D, E and F);
+               eligible live and the included pair-pixels, which set the
+               bounds of C, D, E and F);
   9c. kernel F — the flat backward against its plain version with the
                same cotangents and bounds, two launches bit-equal; then
                its gradient after the slot gather's VJP against D's (bit-
@@ -139,8 +151,10 @@ FP32_OPS_PER_S = 67e12
 OPS_PER_SLOT_A = 130  # ~20-step binary search + block decode + the cull
 OPS_PER_CANDIDATE_B = 60  # window tests + the four-edge quadratic minimum
 # the blends (C, E forward; D, F backward) per pair-pixel: α and the
-# transmittance wherever the pixel's C ≥ eps before the pair (live), the
-# colour or the gradients only where the pair is included
+# transmittance wherever the pixel's C ≥ eps before the pair (live) and
+# the pair is eligible there (α ≥ α_min, power ≤ 0: a pair-pixel that is
+# not changes nothing, and the forward's strip cull skips most of them),
+# the colour or the gradients only where the pair is included
 OPS_LIVE_PAIR_PIXEL = 39  # quadratic 9, fexp 20, α 2, tests 2, C 3, …
 OPS_INCLUDED_PAIR_PIXEL_C = 6  # w and the rgb sums (E: the same)
 OPS_INCLUDED_PAIR_PIXEL_D = 46  # v, U, dα, 9 gradients, 9 sums (F: the same)
@@ -221,12 +235,45 @@ def bound(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def needed_ops(work, ops_included: int) -> int:
+def needed_ops(work, ops_included: int, counted: str = "pair_pixels_eligible") -> int:
     """The operations a blend needs on this data, from the plain replay's
     counts (stream.blend_backward_plain's stats): OPS_LIVE_PAIR_PIXEL per
-    live pair-pixel, ops_included per included one."""
-    return (OPS_LIVE_PAIR_PIXEL * work["pair_pixels_live"]
+    eligible live pair-pixel (counted="pair_pixels_live": per live one,
+    the earlier count), ops_included per included one."""
+    return (OPS_LIVE_PAIR_PIXEL * work[counted]
             + ops_included * work["pair_pixels_included"])
+
+
+def fwd_work_line(work) -> str:
+    """The forward's work from the plain replay's counts: (warp, pair)s
+    the strip cull keeps, pair-pixels evaluated, culled and stopped, and
+    the pair-pixels the blend needs."""
+    pp = max(1, work["pair_pixels"])
+    return (f"(warp, pair)s the strip cull keeps {work['fwd_warp_pairs_kept']} of "
+            f"{work['fwd_warp_pairs']} "
+            f"({work['fwd_warp_pairs_kept'] / max(1, work['fwd_warp_pairs']):.3f}); of "
+            f"{work['pair_pixels']} pair-pixels in the chunks run, evaluated "
+            f"{work['fwd_pair_pixels_evaluated']} ({work['fwd_pair_pixels_evaluated'] / pp:.3f}), "
+            f"culled {work['fwd_pair_pixels_culled']} "
+            f"({work['fwd_pair_pixels_culled'] / pp:.3f}), skipped by the warps' stops "
+            f"{work['fwd_pair_pixels_stopped']} ({work['fwd_pair_pixels_stopped'] / pp:.3f}); "
+            f"live {work['pair_pixels_live']}, eligible {work['pair_pixels_eligible']}, "
+            f"included {work['pair_pixels_included']}; eligible live pair-pixels the "
+            f"forward would skip {work['fwd_eligible_skipped']}")
+
+
+def check_baseline(what: str, base_path: str, fn, args, eps: float) -> str:
+    """fn(*args), a forward wrapper (C's or E's), against the same call
+    through the baseline variant's library: fail unless
+    blend_fwd_variants.matches_baseline; returns what it found."""
+    from gsjax_torch.tools import blend_fwd_variants
+
+    out = fn(*args)
+    with blend_fwd_variants.loaded(base_path):
+        base = fn(*args)
+    ok, detail = blend_fwd_variants.matches_baseline(out, base, eps)
+    check(ok, f"{what}: differs from the baseline variant: {detail}")
+    return detail
 
 
 def replayed_pair_pixels(out, starts, cfg) -> int:
@@ -642,6 +689,7 @@ def main() -> int:
     from gsjax_torch.render import binning, flat, homesort, stream
     from gsjax_torch.render.composite import (assemble_band, att_table,
                                               clipped_pair_stream)
+    from gsjax_torch.tools import blend_fwd_variants
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain blend's einsum: f32
     torch.backends.cudnn.allow_tf32 = False
@@ -661,13 +709,16 @@ def main() -> int:
     t0 = time.perf_counter()
 
     def build(library):
-        path = kernels.build(library)
+        path = (blend_fwd_variants.build_variant(library) if library == "baseline"
+                else kernels.build(library))
         return os.path.relpath(path, ROOT), time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        built = dict(zip(kernels.SOURCES, pool.map(build, kernels.SOURCES)))
+    libraries = tuple(kernels.SOURCES) + ("baseline",)
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        built = dict(zip(libraries, pool.map(build, libraries)))
     for library in kernels.SOURCES:
         kernels.lib(library)
+    base_path = os.path.join(ROOT, built["baseline"][0])
     print(f"# build: {time.perf_counter() - t0:.2f} s; "
           + "; ".join(f"{library} library ready after {t:.2f} s -> {path}"
                       for library, (path, t) in built.items()))
@@ -755,6 +806,10 @@ def main() -> int:
         del ct0
         bound_c = bound(nbytes(att, pid, starts, out_k),
                         needed_ops(work_c, OPS_INCLUDED_PAIR_PIXEL_C))
+        bound_c_live = bound(nbytes(att, pid, starts, out_k),
+                             needed_ops(work_c, OPS_INCLUDED_PAIR_PIXEL_C, "pair_pixels_live"))
+        eps = cfg.transmittance_eps
+        base_c = check_baseline("kernel C", base_path, stream.stream_forward, c_args, eps)
         print(f"# C stream blend: {bins.pid_sorted.shape[0]} pairs over "
               f"{tiles_x * tiles_y} tiles (max {int(counts.max())} per tile, "
               f"{int((counts == 0).sum())} empty); |img, T_act| diff p99.9 "
@@ -764,6 +819,16 @@ def main() -> int:
               f"{float((-(-counts // cfg.chunk)).float().mean()):.2f}; "
               f"{pp_c} pair-pixels run, {work_c['pair_pixels_live']} live (the pixel's "
               f"C ≥ eps before the pair), {work_c['pair_pixels_included']} included")
+        print(f"# C against the baseline variant at view 0: {base_c}")
+        print(f"# C's work at view 0 (the plain replay's count, the kernel's warp "
+              f"rectangles: {stream.FWD_PIXELS} pixels a thread, "
+              f"{stream.FWD_WARP_W} wide): {fwd_work_line(work_c)}")
+        print(f"# C bound {bound_c[0]:.4f} ms ({bound_c[1]}; eligible live and included "
+              f"pair-pixels); counting every live pair-pixel, the earlier count: "
+              f"{bound_c_live[0]:.4f} ms ({bound_c_live[1]})")
+        check(work_c["fwd_eligible_skipped"] == 0,
+              f"the plain strip cull drops {work_c['fwd_eligible_skipped']} eligible "
+              "live pair-pixels at view 0")
         check(p999 <= 2e-5, f"kernel C: p99.9 |diff| {p999} > 2e-5")
         check(err_c <= 5e-3, f"kernel C: max |diff| {err_c} > 5e-3")
         check(n_done_diff <= max(8, tiles_x * tiles_y // 1000),
@@ -792,6 +857,7 @@ def main() -> int:
         # the same pairs as C's: C's count of the work they need
         bound_e = bound(pp_e // cfg.tile_size ** 2 * ATT_BYTES + nbytes(starts, cbase, out_e),
                         needed_ops(work_c, OPS_INCLUDED_PAIR_PIXEL_C))
+        base_e = check_baseline("kernel E", base_path, flat.slots_forward, e_args, eps)
         ms_e = cuda_ms(lambda: flat.slots_forward(*e_args), 20)
         ms_c = cuda_ms(lambda: stream.stream_forward(*c_args), 20)
         print(f"# E slot blend: {att_al.shape[0]} slots ({int(cbase[-1])} live, "
@@ -800,7 +866,8 @@ def main() -> int:
               f"diff {c_diff:.3e}; n_done differs on {n_done_diff} tiles; against "
               f"kernel C on the same pairs max |Δ| {e_vs_c:.3e}, "
               f"{'bit-equal' if e_equals_c else 'NOT bit-equal'}; E {ms_e:.3f} ms, "
-              f"C {ms_c:.3f} ms (same call); bound {bound_e[0]:.3f} ms ({bound_e[1]})")
+              f"C {ms_c:.3f} ms (same call); bound {bound_e[0]:.3f} ms ({bound_e[1]}); "
+              f"against the baseline variant: {base_e}")
         check(p999 <= 2e-5, f"kernel E: p99.9 |diff| {p999} > 2e-5")
         check(err_e <= 5e-3, f"kernel E: max |diff| {err_e} > 5e-3")
         check(n_done_diff <= max(8, tiles_x * tiles_y // 1000),
@@ -841,6 +908,22 @@ def main() -> int:
                   f"edge case {name} ({backend}): card vs cpu {float(d.max())}")
             check(all(a == b for a, b in counters.values()),
                   f"edge case {name} ({backend}): counters differ {counters}")
+            # C or E against the baseline variant on the scene's blend inputs
+            _, _, _, (_, ph_e, _, bins_e) = staged_render(gg, cam.to(dev), cfg_e)
+            pid_e, starts_e, _ = clipped_pair_stream(bins_e, cfg_e)
+            att_e = att_table(ph_e).contiguous()
+            if backend == "stream":
+                fwd, fwd_args = stream.stream_forward, (att_e, pid_e, starts_e, bins_e.ty0,
+                                                        bins_e.tiles_x, cfg_e)
+            else:
+                al, tile_of_e, cbase_e = flat.chunked_pair_attrs(
+                    att_e, pid_e, starts_e, cfg_e, cfg_e.tile_span ** 2)
+                fwd, fwd_args = flat.slots_forward, (al, starts_e, cbase_e, tile_of_e,
+                                                     bins_e.ty0, bins_e.tiles_x,
+                                                     bins_e.band_rows, cfg_e)
+            detail = check_baseline(f"edge case {name} ({backend})", base_path, fwd,
+                                    fwd_args, cfg_e.transmittance_eps)
+            print(f"# edge case {name} ({backend}) against the baseline variant: {detail}")
             if name == "overflow":
                 check(counters["n_fat_overflow"][0] > 0, "overflow not counted")
 
@@ -983,8 +1066,13 @@ def main() -> int:
             max_abs_err=err_d, ms=ms_d, plain_ms=plain_d,
             bound_ms=bound_d[0], bound_by=bound_d[1], library_ms=None,
         ))
+        bound_d_live = bound(nbytes(att, pid, starts, out, ct_img, ct_T, dk),
+                             needed_ops(work, OPS_INCLUDED_PAIR_PIXEL_D, "pair_pixels_live"))
         print(f"# D: {pp_d} pair-pixels replayed, {work['pair_pixels_live']} live, "
-              f"{work['pair_pixels_included']} included; {n_marked} rows marked; wrapper {ms_d:.3f} ms = zero of the "
+              f"{work['pair_pixels_eligible']} eligible, "
+              f"{work['pair_pixels_included']} included; bound counting every live one "
+              f"(the earlier count) {bound_d_live[0]:.4f} ms; {n_marked} rows marked; "
+              f"wrapper {ms_d:.3f} ms = zero of the "
               f"row marks [{nh * k_slots}] {zero_ms:.3f} + blend kernel {kern_ms:.3f} + "
               f"class-sum kernel {sum_ms:.3f} (against its plain version max |Δ|/peak "
               f"{sum_err:.1e}); plain {plain_d:.3f} ms; bound {bound_d[0]:.3f} ms "
@@ -1040,8 +1128,13 @@ def main() -> int:
                         needed_ops(work_f, OPS_INCLUDED_PAIR_PIXEL_D))
         ms_f = cuda_ms(lambda: flat.slots_backward(*f_args), 10)
         plain_f = cuda_ms(lambda: flat.slots_backward_plain(*f_args), 2)
+        bound_f_live = bound(pp_f // cfg.tile_size ** 2 * ATT_BYTES
+                             + nbytes(starts, cbase, out_e, ct_img, ct_T, fk),
+                             needed_ops(work_f, OPS_INCLUDED_PAIR_PIXEL_D, "pair_pixels_live"))
         print(f"# F: {pp_f} pair-pixels replayed, {work_f['pair_pixels_live']} live, "
-              f"{work_f['pair_pixels_included']} included; F {ms_f:.3f} ms (its zeroed output "
+              f"{work_f['pair_pixels_eligible']} eligible, "
+              f"{work_f['pair_pixels_included']} included (bound counting every live one, "
+              f"the earlier count, {bound_f_live[0]:.4f} ms); F {ms_f:.3f} ms (its zeroed output "
               f"[{fk.shape[0]}, {cfg.chunk}, 9] included), D {ms_d:.3f} ms; plain "
               f"{plain_f:.3f} ms; bound {bound_f[0]:.3f} ms ({bound_f[1]}) on {card}")
         results.append(dict(

@@ -15,18 +15,53 @@
 //     to the same row of the slot gradient [NCB, chunk, 9].
 // The per-pair math is one copy, so the two backends give the same bits.
 //
-// Forward (blend_fwd_kernel): one block of ts·ts threads owns one tile,
-// one thread one pixel (centre at integer coordinates, as in the
-// reference's _pixel_grid). The block walks the tile's chunks:
-//   * stage the chunk's attributes in shared memory (SoA [9][chunk] f32);
-//   * every thread runs the chunk in order, the sequential form of the
-//     TPU's chunk math: f = 1−α if eligible else 1; a pair is included
-//     iff eligible and C·f ≥ eps; then img += C·α·rgb and T_act = C·f;
-//     C ← C·f for every eligible pair (C is the virtual transmittance,
-//     which makes termination sticky);
+// Forward (blend_fwd_kernel): one block owns one tile, kFwdPixels pixels
+// per thread (centres at integer coordinates, as in the reference's
+// _pixel_grid), and each warp a kFwdWarpW-wide rectangle of the tile's
+// pixels. The block walks the tile's chunks:
+//   * stage the chunk's rows in shared memory with the whole block, 9
+//     consecutive threads on one 36-byte row (E's slot rows are one
+//     contiguous run), as kStage-float rows: three float4 broadcast loads
+//     fetch a pair, whose pad words then hold its cull threshold and
+//     −b/c, −b/a;
+//   * the strip cull: for each (pair, warp) one thread decides whether the
+//     pair's α_min ellipse can reach the warp's rectangle, the exact
+//     minimum of the conic quadratic over the rectangle (box_qmin, kernel
+//     B's tile test at warp granularity) against homesort.cull_threshold's
+//     2·ln(max(op, α_min)/α_min) + 1e-3 widened by kCullWiden; a ballot
+//     packs the warps' bits into the pair's mask. The cull is
+//     conservative: with op < α_min no pixel is eligible (fexp ≤ 1 for
+//     x ≤ 0, so α ≤ op), a conic that is not positive definite or is
+//     near-degenerate (det ≤ kCullDegenerate·a·c, where the quadratic's
+//     rounding is no longer small against it) or NaN reaches every warp,
+//     and otherwise the widening is ≥ 16× the rounding of both the
+//     kernel's quadratic and the cull's (relative error ≤ ~4u·4/ρ, u =
+//     2^-24, ρ = kCullDegenerate);
+//   * every warp runs the chunk's pairs its mask bit keeps, in order (a
+//     ballot of the bits, then the set bits lowest first), with the TPU's
+//     chunk math done sequentially: f = 1−α if eligible else 1; a pair is
+//     included iff eligible and C·f ≥ eps; then img += C·α·rgb and T_act =
+//     C·f; C ← C·f for every eligible pair (C is the virtual
+//     transmittance, which makes termination sticky). A pair the cull
+//     drops is eligible at none of the warp's pixels, so skipping it
+//     changes no bit;
+//   * the warp stop: C only falls, so once every pixel of the warp has
+//     C < eps none of them can include a later pair (C·f ≤ C < eps): the
+//     warp skips the rest of the tile's pairs. It still stages, culls and
+//     meets every barrier; its exit vote is false either way;
 //   * at the chunk's end __syncthreads_or(C ≥ eps) decides whether the
 //     tile goes on, so the exit is chunk-granular: the backward replays
 //     n_done chunks.
+// The per-pixel arithmetic is the full walk's (every pair at every pixel
+// of the chunks run, one pixel per thread), expression for expression, so
+// img, T_act and n_done are its bits. Only the exit C (row 4) of a pixel
+// whose warp stopped differs: it stays where the stop left it, below eps,
+// where the full walk would have gone on lowering it. No caller reads row
+// 4 (the backward reads rows 0-3 and 5). Each chunk's staging, cull and
+// masks cost ~400 instructions a thread; the evaluation ~45 per
+// (pair, pixel) it keeps, which the fp32 issue rate bounds
+// (gsjax_torch/tools/blend_fwd_variants.py times the mappings and the
+// ablations).
 // Output [T, 8, ts·ts] f32 rows: rgb, T_act, C, n_done, 0, 0. A tile with
 // no pairs leaves (0, 0, 0, 1, 1, 0, 0, 0).
 //
@@ -68,8 +103,9 @@
 //
 // Bound on the card: the per-pixel arithmetic for dense tiles (~39 fp32
 // operations for α and the transmittance wherever the pixel's C ≥ eps
-// before the pair, ~6 more forward and ~46 more backward where the pair
-// is included), the staging loads (36 bytes per pair) for sparse ones.
+// before the pair and the pair is eligible there, ~6 more forward and ~46
+// more backward where the pair is included), the staging loads (36 bytes
+// per pair) for sparse ones.
 // Threads of a tile read the same shared-memory word at once (a
 // broadcast, no bank conflicts); the per-tile work is imbalanced across
 // blocks, which the 8k-tile grid spreads over the SMs. In the backward
@@ -132,60 +168,185 @@ __device__ __forceinline__ void stage_chunk(const Rows& rows, int r0, int m,
   }
 }
 
+// The forward's grouping: kFwdPixels pixels per thread (1, 2 or 4), and
+// each warp's rectangle kFwdWarpW pixels wide and 32·kFwdPixels /
+// kFwdWarpW rows high. render/stream.py mirrors both (FWD_PIXELS,
+// FWD_WARP_W).
+constexpr int kFwdPixels = 2;
+constexpr int kFwdWarpW = 8;
+static_assert(kFwdPixels == 1 || kFwdPixels == 2 || kFwdPixels == 4,
+              "kFwdPixels: 1, 2 or 4");
+static_assert(kFwdWarpW >= 4 && kFwdWarpW <= 32 && (32 * kFwdPixels) % kFwdWarpW == 0,
+              "kFwdWarpW: a divisor of a warp's pixels");
+// A staged row: mean2d, conic, rgb, opacity (att's 9 columns), then the
+// cull's threshold, −b/c and −b/a.
+constexpr int kStage = 12;
+constexpr float kCullDegenerate = 0x1p-6f;  // det ≤ a·c/64: reaches every warp
+constexpr float kCullWiden = 0x1.008p+0f;   // 1 + 2^-9
+
+// The cull's per-pair part, in the staged row's pad words: the threshold
+// (−1: reaches no pixel; +inf: every warp) and −b/c, −b/a.
+__device__ __forceinline__ void cull_prep(float* a, float alpha_min) {
+  const float ca = a[2], cb = a[3], cc = a[4], op = a[8];
+  float thr = (2.0f * logf(fmaxf(op, alpha_min) / alpha_min) + 1e-3f) * kCullWiden;
+  if (!(ca > 0.0f && cc > 0.0f && ca * cc - cb * cb > kCullDegenerate * (ca * cc)))
+    thr = __int_as_float(0x7f800000);  // +inf
+  if (op < alpha_min) thr = -1.0f;
+  a[9] = thr;
+  a[10] = -cb / cc;
+  a[11] = -cb / ca;
+}
+
+// whether staged pair `a` can be eligible at some pixel centre of
+// [x0, x1] × [y0, y1] (absolute pixel coordinates)
+__device__ __forceinline__ bool strip_reaches(const float* a, float x0, float x1, float y0,
+                                              float y1) {
+  const float thr = a[9];
+  if (thr < 0.0f) return false;
+  const float dxl = x0 - a[0];
+  const float dxr = x1 - a[0];
+  const float dyl = y0 - a[1];
+  const float dyr = y1 - a[1];
+  if (box_inside(dxl, dxr, dyl, dyr)) return true;
+  return !(box_qmin(a[2], a[3], a[4], a[10], a[11], dxl, dxr, dyl, dyr) > thr);
+}
+
+// stage the chunk's m rows from row key r0 (kStage floats a row) with the
+// whole block: consecutive threads read consecutive words of a row
+template <class Rows>
+__device__ __forceinline__ void stage_rows(const Rows& rows, int r0, int m, float* sh) {
+  for (int e = threadIdx.x; e < m * kAtt; e += blockDim.x) {
+    const int i = e / kAtt;
+    const int c = e - i * kAtt;
+    sh[i * kStage + c] = __ldg(rows.row(rows.key(r0 + i)) + c);
+  }
+}
+
+// the mask of warps each of the chunk's m staged pairs reaches: one
+// thread per (pair, warp), n_warps (a power of two ≤ 32) consecutive
+// lanes per pair, their bits packed by a ballot
+__device__ __forceinline__ void stage_warp_masks(float* sh, unsigned* smask, int m, int n_warps,
+                                                 int nwx, float tx, float ty, float alpha_min) {
+  constexpr int HW = 32 * kFwdPixels / kFwdWarpW;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) cull_prep(sh + i * kStage, alpha_min);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int n = m * n_warps;
+  for (int e0 = 0; e0 < n; e0 += blockDim.x) {  // uniform trip count: full ballots
+    const int e = e0 + threadIdx.x;
+    const int i = e / n_warps;
+    const int w = e & (n_warps - 1);
+    const float x0 = tx + static_cast<float>((w % nwx) * kFwdWarpW);
+    const float y0 = ty + static_cast<float>((w / nwx) * HW);
+    const bool reach = e < n && strip_reaches(sh + i * kStage, x0,
+                                              x0 + static_cast<float>(kFwdWarpW - 1), y0,
+                                              y0 + static_cast<float>(HW - 1));
+    const unsigned bits = __ballot_sync(0xffffffffu, reach);
+    if (w == 0 && e < n)
+      smask[i] = n_warps == 32 ? bits : (bits >> lane) & ((1u << n_warps) - 1u);
+  }
+}
+
 template <class Rows>
 __global__ void blend_fwd_kernel(Rows rows, const int* __restrict__ starts,
                                  int ty0, int tiles_x, int ts, int chunk,
                                  float alpha_clamp, float alpha_min,
                                  float eps_T, float* __restrict__ out) {
-  extern __shared__ float sh[];  // [kAtt][chunk]
+  constexpr int PX = kFwdPixels;
+  constexpr int HW = 32 * PX / kFwdWarpW;
+  extern __shared__ float4 fwd_sh[];  // [chunk][kStage / 4] staged rows
+  float* sh = reinterpret_cast<float*>(fwd_sh);
+  unsigned* smask = reinterpret_cast<unsigned*>(sh + kStage * chunk);  // [chunk]
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
-  const int n_px = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_px = ts * ts;
+  const int n_warps = blockDim.x >> 5;
+  const int nwx = ts / kFwdWarpW;
   const int s0 = starts[t];
   const int count = starts[t + 1] - s0;
   const int r0 = rows.begin(t, s0);
-  const float px = static_cast<float>((t % tiles_x) * ts + tid % ts);
-  const float py = static_cast<float>((t / tiles_x + ty0) * ts + tid / ts);
-
-  float C = 1.0f, T_act = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f;
+  const int tx = (t % tiles_x) * ts;
+  const int ty = (t / tiles_x + ty0) * ts;
+  const float fx0 = static_cast<float>(tx), fy0 = static_cast<float>(ty);
+  // pixel j of the thread: the warp's rectangle at (wx, wy), lanes along
+  // its rows
+  int pix[PX];
+  float px[PX], py[PX], C[PX], T_act[PX], r[PX], g[PX], b[PX];
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+    const int q = lane + 32 * j;
+    const int x = (warp % nwx) * kFwdWarpW + q % kFwdWarpW;
+    const int y = (warp / nwx) * HW + q / kFwdWarpW;
+    pix[j] = y * ts + x;
+    px[j] = static_cast<float>(tx + x);
+    py[j] = static_cast<float>(ty + y);
+    C[j] = T_act[j] = 1.0f;
+    r[j] = g[j] = b[j] = 0.0f;
+  }
+  bool running = true;  // some pixel of the warp has C ≥ eps
   int n_done = 0;
   for (int k = 0; k * chunk < count; ++k) {
     const int m = min(chunk, count - k * chunk);
-    stage_chunk(rows, r0 + k * chunk, m, chunk, sh, static_cast<int*>(nullptr));
+    stage_rows(rows, r0 + k * chunk, m, sh);
     __syncthreads();
-    for (int i = 0; i < m; ++i) {
-      const float dx = px - sh[i];
-      const float dy = py - sh[chunk + i];
-      const float ca = sh[2 * chunk + i];
-      const float cb = sh[3 * chunk + i];
-      const float cc = sh[4 * chunk + i];
-      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-      const float alpha = fminf(alpha_clamp, sh[8 * chunk + i] * fexp(power));
-      if (alpha >= alpha_min && power <= 0.0f) {
-        const float Cn = C * (1.0f - alpha);
-        if (Cn >= eps_T) {
-          const float w = C * alpha;
-          r += w * sh[5 * chunk + i];
-          g += w * sh[6 * chunk + i];
-          b += w * sh[7 * chunk + i];
-          T_act = Cn;
+    stage_warp_masks(sh, smask, m, n_warps, nwx, fx0, fy0, alpha_min);
+    __syncthreads();
+    for (int i0 = 0; running && i0 < m; i0 += 32) {
+      // the chunk's pairs the cull keeps for this warp, 32 at a time
+      unsigned keep = __ballot_sync(
+          0xffffffffu, i0 + lane < m && ((smask[i0 + lane] >> warp) & 1u));
+      while (keep != 0u) {
+        const int i = i0 + __ffs(keep) - 1;
+        keep &= keep - 1u;
+        const float4 a0 = fwd_sh[3 * i];      // mean2d, ca, cb
+        const float4 a1 = fwd_sh[3 * i + 1];  // cc, rgb
+        const float op = sh[kStage * i + 8];
+        bool open = false;
+#pragma unroll
+        for (int j = 0; j < PX; ++j) {
+          const float dx = px[j] - a0.x;
+          const float dy = py[j] - a0.y;
+          const float power = -0.5f * (a0.z * dx * dx + a1.x * dy * dy) - a0.w * dx * dy;
+          const float alpha = fminf(alpha_clamp, op * fexp(power));
+          if (alpha >= alpha_min && power <= 0.0f) {
+            const float Cn = C[j] * (1.0f - alpha);
+            if (Cn >= eps_T) {
+              const float w = C[j] * alpha;
+              r[j] += w * a1.y;
+              g[j] += w * a1.z;
+              b[j] += w * a1.w;
+              T_act[j] = Cn;
+            }
+            C[j] = Cn;
+          }
+          open = open || C[j] >= eps_T;
         }
-        C = Cn;
+        // the warp stop
+        running = __any_sync(0xffffffffu, open);
+        if (!running) break;
       }
     }
     n_done = k + 1;
+    bool open = false;
+#pragma unroll
+    for (int j = 0; j < PX; ++j) open = open || C[j] >= eps_T;
     // also the barrier before the next chunk overwrites the stage
-    if (!__syncthreads_or(C >= eps_T)) break;
+    if (!__syncthreads_or(open)) break;
   }
-  float* o = out + static_cast<size_t>(t) * kRows * n_px + tid;
-  o[0] = r;
-  o[n_px] = g;
-  o[2 * n_px] = b;
-  o[3 * n_px] = T_act;
-  o[4 * n_px] = C;
-  o[5 * n_px] = static_cast<float>(n_done);
-  o[6 * n_px] = 0.0f;
-  o[7 * n_px] = 0.0f;
+  float* o = out + static_cast<size_t>(t) * kRows * n_px;
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+    o[pix[j]] = r[j];
+    o[n_px + pix[j]] = g[j];
+    o[2 * n_px + pix[j]] = b[j];
+    o[3 * n_px + pix[j]] = T_act[j];
+    o[4 * n_px + pix[j]] = C[j];
+    o[5 * n_px + pix[j]] = static_cast<float>(n_done);
+    o[6 * n_px + pix[j]] = 0.0f;
+    o[7 * n_px + pix[j]] = 0.0f;
+  }
 }
 
 template <class Rows>
@@ -194,8 +355,8 @@ int launch_blend_forward(Rows rows, const int* starts, int n_tiles, int ty0,
                          float alpha_min, float eps_T, float* out,
                          void* stream) {
   if (n_tiles > 0) {
-    const size_t smem = sizeof(float) * kAtt * chunk;
-    blend_fwd_kernel<Rows><<<n_tiles, ts * ts, smem,
+    const size_t smem = sizeof(float) * kStage * chunk + sizeof(unsigned) * chunk;
+    blend_fwd_kernel<Rows><<<n_tiles, ts * ts / kFwdPixels, smem,
                              static_cast<cudaStream_t>(stream)>>>(
         rows, starts, ty0, tiles_x, ts, chunk, alpha_clamp, alpha_min, eps_T,
         out);

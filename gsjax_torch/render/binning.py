@@ -24,7 +24,7 @@ import torch
 from gsjax_torch import kernels
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
-from gsjax_torch.render.common import MAX_TILES, depth_bits
+from gsjax_torch.render.common import MAX_TILES, box_inside, box_qmin, depth_bits
 from gsjax_torch.render.homesort import cull_threshold, sort_perm
 from gsjax_torch.render.project import ProjectedSplats
 
@@ -67,20 +67,8 @@ def expand_pairs_plain(cols, ty0: int, band_rows: int, tiles_x: int, ts: int,
         dxr = dxl + (ts_f - 1.0)
         dyl = ty.to(torch.float32) * ts_f - my
         dyr = dyl + (ts_f - 1.0)
-        inside = (dxl <= 0) & (dxr >= 0) & (dyl <= 0) & (dyr >= 0)
-
-        def edge_x(dx):
-            dy = torch.minimum(torch.maximum(ncbrcc * dx, dyl), dyr)
-            return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-
-        def edge_y(dy):
-            dx = torch.minimum(torch.maximum(ncbrca * dy, dxl), dxr)
-            return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-
-        qmin = torch.minimum(
-            torch.minimum(edge_x(dxl), edge_x(dxr)),
-            torch.minimum(edge_y(dyl), edge_y(dyr)),
-        )
+        inside = box_inside(dxl, dxr, dyl, dyr)
+        qmin = box_qmin(ca, cb, cc, ncbrcc, ncbrca, dxl, dxr, dyl, dyr)
         ok = ok & (inside | (qmin <= thr))
         tiles.append(torch.where(ok, (ty - ty0) * tiles_x + tx,
                                  torch.full_like(tx, INVALID_TILE)))

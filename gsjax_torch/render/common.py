@@ -65,3 +65,28 @@ def gaussian_power(conic, dx, dy):
     """Log-weight -0.5(a dx² + c dy²) - b dx dy; conic [..., 3]."""
     a, b, c = conic[..., 0], conic[..., 1], conic[..., 2]
     return -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+
+
+def box_qmin(ca, cb, cc, ncbrcc, ncbrca, dxl, dxr, dyl, dyr):
+    """Min of the conic quadratic a·dx² + 2b·dx·dy + c·dy² over the box
+    [dxl, dxr] × [dyl, dyr] of offsets from the mean, where the mean lies
+    outside it: the least of the four edge minima, each edge's free
+    coordinate at its clamped 1-D minimiser (ncbrcc = −b/c, ncbrca = −b/a).
+    The expressions of csrc/common.cuh::box_qmin, op for op."""
+
+    def quad(dx, dy):
+        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
+
+    def edge_x(dx):
+        return quad(dx, torch.minimum(torch.maximum(ncbrcc * dx, dyl), dyr))
+
+    def edge_y(dy):
+        return quad(torch.minimum(torch.maximum(ncbrca * dy, dxl), dxr), dy)
+
+    return torch.minimum(torch.minimum(edge_x(dxl), edge_x(dxr)),
+                         torch.minimum(edge_y(dyl), edge_y(dyr)))
+
+
+def box_inside(dxl, dxr, dyl, dyr):
+    """The mean lies in the box (csrc/common.cuh::box_inside)."""
+    return (dxl <= 0) & (dxr >= 0) & (dyl <= 0) & (dyr >= 0)

@@ -30,7 +30,7 @@ import torch
 from gsjax_torch import kernels
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
-from gsjax_torch.render.common import depth_bits, tile_rect
+from gsjax_torch.render.common import box_inside, box_qmin, depth_bits, tile_rect
 from gsjax_torch.render.project import ProjectedSplats
 
 PCOLS = 11  # mean2d(2) + depth(1) + conic(3) + radius(1) + rgb(3) + opacity(1)
@@ -62,23 +62,8 @@ def _block_qmin(mx, my, ca, cb, cc, wx0, wx1, wy0, wy1, ts: float):
     dxr = wx1.to(torch.float32) * ts - 1.0 - mx
     dyl = wy0.to(torch.float32) * ts - my
     dyr = wy1.to(torch.float32) * ts - 1.0 - my
-    inside = (dxl <= 0) & (dxr >= 0) & (dyl <= 0) & (dyr >= 0)
-    neg_cb_rcc = -cb / cc
-    neg_cb_rca = -cb / ca
-
-    def edge_x(dx):
-        dy = torch.minimum(torch.maximum(neg_cb_rcc * dx, dyl), dyr)
-        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-
-    def edge_y(dy):
-        dx = torch.minimum(torch.maximum(neg_cb_rca * dy, dxl), dxr)
-        return ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-
-    qmin = torch.minimum(
-        torch.minimum(edge_x(dxl), edge_x(dxr)),
-        torch.minimum(edge_y(dyl), edge_y(dyr)),
-    )
-    return torch.where(inside, torch.zeros_like(qmin), qmin)
+    qmin = box_qmin(ca, cb, cc, -cb / cc, -cb / ca, dxl, dxr, dyl, dyr)
+    return torch.where(box_inside(dxl, dxr, dyl, dyr), torch.zeros_like(qmin), qmin)
 
 
 # --------------------------------------------------------------------------

@@ -43,15 +43,22 @@ import torch
 
 from gsjax_torch import kernels
 from gsjax_torch.core.config import RenderConfig
-from gsjax_torch.render.common import gaussian_power
+from gsjax_torch.render.common import box_inside, box_qmin, gaussian_power
 from gsjax_torch.render.composite import assemble_band, att_table, clipped_pair_stream
 from gsjax_torch.render.fastmath import fexp
+from gsjax_torch.render.homesort import cull_threshold
 
 FWD_ROWS = 8  # img(3), T_act, C, n_done, spare(2)
 _PLAIN_TILE_BATCH = 256  # tiles per batch of the plain blend
 # the backward kernel's grouping (csrc/blend.cuh: kBwdPairs, kBwdPixels):
 # pairs reduced together over a warp's pixels, pixels per thread
 BWD_PAIRS, BWD_PIXELS = 4, 2
+# the forward kernel's grouping (csrc/blend.cuh: kFwdPixels, kFwdWarpW):
+# pixels per thread, and the width of each warp's rectangle of the tile
+# (32·FWD_PIXELS / FWD_WARP_W rows high); and its strip cull's constants
+# (kCullDegenerate, kCullWiden)
+FWD_PIXELS, FWD_WARP_W = 2, 8
+CULL_DEGENERATE, CULL_WIDEN = 2.0 ** -6, 1.0 + 2.0 ** -9
 
 
 def pair_rows(att, pid, starts, cfg: RenderConfig):
@@ -137,6 +144,41 @@ def blend_forward_plain(rows, starts, ty0: int, tiles_x: int, cfg: RenderConfig)
     return out
 
 
+def fwd_warp_of_pixel(ts: int, device=None):
+    """The forward kernel's warp of each pixel of a tile [ts²] (row-major
+    pixel index): warp w owns the FWD_WARP_W-wide rectangle at column
+    (w % (ts / FWD_WARP_W)), row (w // (ts / FWD_WARP_W)) of rectangles."""
+    hw = 32 * FWD_PIXELS // FWD_WARP_W
+    pix = torch.arange(ts * ts, device=device)
+    return (pix // ts // hw) * (ts // FWD_WARP_W) + pix % ts // FWD_WARP_W
+
+
+def strip_cull_plain(a, x0, y0, cfg: RenderConfig):
+    """Kernels C's and E's strip cull (csrc/blend.cuh: cull_prep,
+    strip_reaches), op for op but for the device logf: whether each pair
+    of a [b, m, 9] (a chunk's rows) can be eligible at some pixel of each
+    forward warp's rectangle of its tile, whose top-left pixel is (x0, y0)
+    [b] f32. Returns [b, m, n_warps] bool. Conservative: a pair is dropped
+    only where its α_min ellipse — the conic quadratic's exact minimum over
+    the rectangle against cull_threshold widened by CULL_WIDEN — misses
+    the rectangle; with op < α_min it reaches no pixel; a conic that is not
+    positive definite, or near-degenerate (det ≤ CULL_DEGENERATE·a·c),
+    reaches every warp."""
+    mx, my, ca, cb, cc, op = (a[..., c, None] for c in (0, 1, 2, 3, 4, 8))
+    thr = cull_threshold(op, cfg.alpha_min) * CULL_WIDEN
+    proper = (ca > 0) & (cc > 0) & (ca * cc - cb * cb > CULL_DEGENERATE * (ca * cc))
+    ts = cfg.tile_size
+    hw = 32 * FWD_PIXELS // FWD_WARP_W
+    w = torch.arange(ts * ts // (32 * FWD_PIXELS), device=a.device)
+    xl = (x0[:, None] + ((w % (ts // FWD_WARP_W)) * FWD_WARP_W).to(torch.float32))[:, None]
+    yl = (y0[:, None] + ((w // (ts // FWD_WARP_W)) * hw).to(torch.float32))[:, None]
+    dxl, dxr = xl - mx, (xl + float(FWD_WARP_W - 1)) - mx  # [b, m, n_warps]
+    dyl, dyr = yl - my, (yl + float(hw - 1)) - my
+    qmin = box_qmin(ca, cb, cc, -cb / cc, -cb / ca, dxl, dxr, dyl, dyr)
+    reach = box_inside(dxl, dxr, dyl, dyr) | ~(qmin > thr) | ~proper
+    return reach & ~(op < cfg.alpha_min)
+
+
 def check_kernel_args(name: str, cfg: RenderConfig, att, shapes_ok: bool,
                       n_tiles: int, indices, cotangents=None) -> None:
     """Raise ValueError on what the blend kernels (C-F) do not take: a
@@ -152,10 +194,16 @@ def check_kernel_args(name: str, cfg: RenderConfig, att, shapes_ok: bool,
                          f"{tuple(att.shape)} {att.dtype}")
     if any(x.dtype != torch.int32 for x in indices):
         raise ValueError(f"{name}: index arrays must be int32")
-    n_px = cfg.tile_size * cfg.tile_size
+    ts = cfg.tile_size
+    n_px = ts * ts
     if cotangents is None:
-        if n_px > 1024 or cfg.chunk * 9 * 4 > 48 * 1024:
-            raise ValueError(f"{name}: tile_size ≤ 32 and chunk ≤ 1365 supported")
+        warp_px = 32 * FWD_PIXELS
+        n_warps = n_px // warp_px
+        if (n_px % warp_px or ts % FWD_WARP_W or ts % (warp_px // FWD_WARP_W)
+                or n_warps & (n_warps - 1) or n_px > 1024 or cfg.chunk * 13 * 4 > 48 * 1024):
+            raise ValueError(f"{name}: tile_size 8, 16 or 32 and chunk ≤ 945 supported "
+                             "(a power of two of warp rectangles of "
+                             f"{FWD_WARP_W}×{warp_px // FWD_WARP_W} pixels)")
         return
     shapes = {"fwd_out": (n_tiles, FWD_ROWS, n_px), "ct_img": (n_tiles, n_px, 3),
               "ct_T": (n_tiles, n_px)}
@@ -189,7 +237,12 @@ def stream_forward(att, pid, starts, ty0: int, tiles_x: int, cfg: RenderConfig):
     Kernel C, csrc/stream_fwd.cu; replaces the TPU kernel
     gsjax/render/pallas_stream.py::_stream_fwd_kernel. CPU tensors take
     the plain version; CUDA tensors launch the kernel (there is no
-    fallback)."""
+    fallback). The kernel skips the pairs a warp's pixels cannot reach
+    and stops a warp once all its pixels' C < eps: rows 0-3 and 5 are
+    the full walk's bits, and row 4, the exit C, is too wherever it is ≥
+    eps; elsewhere it stays below eps where the stop left it. No caller
+    reads row 4 (blend_stream returns rows 0-3, the backward reads 0-3
+    and 5)."""
     if att.device.type == "cpu":
         return stream_forward_plain(att, pid, starts, ty0, tiles_x, cfg)
     n_tiles = starts.shape[0] - 1
@@ -308,7 +361,8 @@ def blend_backward_plain(rows, n_keys: int, starts, fwd_out, ct_img, ct_T,
             )
             dout[key[valid]] = datt[valid]
             if stats is not None:
-                _count_work(stats, include, T_i, valid, eps)
+                keep = strip_cull_plain(a[:, 0], px[act][:, 0], py[act][:, 0], cfg)
+                _count_work(stats, include, T_i, valid, eps, eligible, keep)
             C[act] = (C0 * incl)[..., -1]
             pre[act] = pre_c[:, :, -1]
     return dout
@@ -316,15 +370,24 @@ def blend_backward_plain(rows, n_keys: int, starts, fwd_out, ct_img, ct_T,
 
 _STATS = ("warp_pairs", "warp_pairs_included", "warp_groups", "warp_groups_reduced",
           "pair_pixels", "pair_pixels_stopped", "pair_pixels_live",
-          "pair_pixels_included")
+          "pair_pixels_eligible", "pair_pixels_included", "fwd_warp_pairs",
+          "fwd_warp_pairs_kept", "fwd_pair_pixels_evaluated", "fwd_pair_pixels_culled",
+          "fwd_pair_pixels_stopped", "fwd_eligible_skipped")
 
 
-def _count_work(stats: dict, include, T_i, valid, eps: float) -> None:
-    """Add one chunk's counts to blend_backward_plain's `stats`: include
-    and T_i (C before each pair) [b, n_px, chunk], valid [b, chunk]; the
-    chunk a multiple of BWD_PAIRS. Besides the kernels' work, the work
-    the function needs: the pair-pixels before the pixel's C < eps (live:
-    α and the transmittance) and the included ones (the gradients)."""
+def _count_work(stats: dict, include, T_i, valid, eps: float, eligible, keep) -> None:
+    """Add one chunk's counts to blend_backward_plain's `stats`: include,
+    eligible and T_i (C before each pair) [b, n_px, chunk], valid [b,
+    chunk], keep [b, chunk, n_warps] the forward's strip cull; the chunk a
+    multiple of BWD_PAIRS. The backward's work under its grouping; the
+    forward's under its warp rectangles, each (warp, pair) of the chunks
+    run counted once as stopped (no pixel of the warp has C ≥ eps before
+    the pair), else culled (the warp's mask bit is clear), else evaluated,
+    and the eligible live pair-pixels in a (warp, pair) the forward skips
+    (0 when the cull is conservative). Besides the kernels' work, the work
+    the function needs: the pair-pixels before the pixel's C < eps (live),
+    those of them where the pair is eligible (α and the transmittance),
+    and the included ones (the colour, the gradients)."""
     b, n_px, chunk = include.shape
     warp_px, p = 32 * BWD_PIXELS, BWD_PAIRS
     nw, ng = n_px // warp_px, chunk // p
@@ -341,8 +404,24 @@ def _count_work(stats: dict, include, T_i, valid, eps: float) -> None:
     stats["warp_groups_reduced"] += int((wp.view(b, nw, ng, p).any(dim=3) & visited).sum())
     stats["pair_pixels"] += int(m.sum()) * n_px
     stats["pair_pixels_stopped"] += int(((~live) * g_pairs[:, None, :]).sum()) * warp_px
-    stats["pair_pixels_live"] += int(((T_i >= eps) & valid[:, None, :]).sum())
+    live_px = (T_i >= eps) & valid[:, None, :]
+    stats["pair_pixels_live"] += int(live_px.sum())
+    stats["pair_pixels_eligible"] += int((live_px & eligible).sum())
     stats["pair_pixels_included"] += int(include.sum())
+    # the forward: its warps' pixels together, in the kernel's warp order
+    ts = round(n_px ** 0.5)
+    warp_of = fwd_warp_of_pixel(ts, T_i.device)
+    fwd_px, nwf = 32 * FWD_PIXELS, n_px // (32 * FWD_PIXELS)
+    running = (T_i >= eps)[:, torch.argsort(warp_of, stable=True)].view(
+        b, nwf, fwd_px, chunk).any(dim=2) & valid[:, None, :]  # [b, nwf, chunk]
+    kept = keep.transpose(1, 2) & valid[:, None, :]
+    evaluated = running & kept
+    stats["fwd_warp_pairs"] += int(m.sum()) * nwf
+    stats["fwd_warp_pairs_kept"] += int(kept.sum())
+    stats["fwd_pair_pixels_evaluated"] += int(evaluated.sum()) * fwd_px
+    stats["fwd_pair_pixels_culled"] += int((running & ~kept).sum()) * fwd_px
+    stats["fwd_pair_pixels_stopped"] += (int(m.sum()) * nwf - int(running.sum())) * fwd_px
+    stats["fwd_eligible_skipped"] += int((live_px & eligible & ~evaluated[:, warp_of]).sum())
 
 
 def stream_backward_plain(att, pid, starts, fwd_out, ct_img, ct_T, ty0: int,

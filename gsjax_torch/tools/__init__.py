@@ -15,10 +15,11 @@ the plain versions and prints host-clock times, which say nothing of the
 card. This module holds what the four share.
 
     python -m gsjax_torch.tools.blend_bwd_variants         # D, F variants
+    python -m gsjax_torch.tools.blend_fwd_variants         # C, E variants
 
-builds edited copies of the blend backward (kernels D and F: other
-groupings, ablations) and times them at the bonsai 1080p orbit's view 0,
-on the card only.
+build edited copies of the blend backward (kernels D and F) or forward
+(C and E) — other groupings, ablations — and time them at the bonsai
+1080p orbit's view 0, on the card only.
 """
 
 from __future__ import annotations

@@ -69,33 +69,39 @@ def variant_source(variant: str, src: str) -> str:
     return src
 
 
-def build_variant(variant: str) -> str:
-    """The variant's library (built if missing), with D's and F's entry
-    points; returns its path."""
-    with open(os.path.join(kernels.CSRC, "blend.cuh")) as fh:
-        blend = variant_source(variant, fh.read())
+def build_edited(variant: str, blend: str, sources) -> str:
+    """The library of `sources` built against `blend` (an edited
+    blend.cuh's text) under gsjax_torch/_build/variants (built if
+    missing); returns its path."""
     h = hashlib.sha256(blend.encode())
-    for name in ("common.cuh",) + SOURCES:
+    for name in ("common.cuh",) + tuple(sources):
         with open(os.path.join(kernels.CSRC, name), "rb") as fh:
             h.update(fh.read())
     d = os.path.join(kernels.BUILD_DIR, "variants", f"{variant}_{h.hexdigest()[:12]}")
     path = os.path.join(d, "lib.so")
     if not os.path.exists(path):
         os.makedirs(d, exist_ok=True)
-        for name in ("common.cuh",) + SOURCES:
+        for name in ("common.cuh",) + tuple(sources):
             shutil.copy(os.path.join(kernels.CSRC, name), d)
         with open(os.path.join(d, "blend.cuh"), "w") as fh:
             fh.write(blend)
-        kernels.compile_library(d, SOURCES, path)
+        kernels.compile_library(d, sources, path)
     return path
 
 
-def ptxas_summary(path: str) -> dict:
-    """{row source: registers, stack frame and spill bytes} of the
-    backward kernel's instantiations, from the library's ptxas report."""
+def build_variant(variant: str) -> str:
+    """The variant's library (built if missing), with D's and F's entry
+    points; returns its path."""
+    with open(os.path.join(kernels.CSRC, "blend.cuh")) as fh:
+        return build_edited(variant, variant_source(variant, fh.read()), SOURCES)
+
+
+def ptxas_summary(path: str, kernel: str = "blend_bwd_kernel") -> dict:
+    """{row source: registers, stack frame and spill bytes} of `kernel`'s
+    instantiations, from the library's ptxas report."""
     with open(kernels.ptxas_log(path)) as fh:
         log = fh.read()
-    found = re.findall(r"Compiling entry function '\w*blend_bwd_kernel\w*?(PairRows|SlotRows)"
+    found = re.findall(rf"Compiling entry function '\w*{kernel}\w*?(PairRows|SlotRows)"
                        r"\w*'.*?(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
                        r"bytes spill loads.*?Used (\d+) registers", log, re.S)
     return {rows: dict(registers=int(r), stack=int(s), spill_stores=int(st),
@@ -103,10 +109,10 @@ def ptxas_summary(path: str) -> dict:
 
 
 @contextlib.contextmanager
-def loaded(path: str):
-    """The wrappers launch the library at `path` for D's and F's entry
-    points while inside."""
-    sigs = {n: kernels._SIGNATURES["path"][n] for n in ENTRY_POINTS}
+def loaded(path: str, entry_points=ENTRY_POINTS):
+    """The wrappers launch the library at `path` for `entry_points` (D's
+    and F's by default) while inside."""
+    sigs = {n: kernels._SIGNATURES["path"][n] for n in entry_points}
     shipped = kernels.lib()
     kernels._libs["path"] = kernels.load(path, sigs)
     try:
@@ -115,10 +121,11 @@ def loaded(path: str):
         kernels._libs["path"] = shipped
 
 
-def view0_inputs(dev):
+def view0_inputs(dev, perturbed: bool = True):
     """(d_args, f_args): stream_backward's and slots_backward's arguments
     at view 0 of the bonsai 1080p orbit (the perturbed scene of the
-    training runs, seeded cotangents)."""
+    training runs, or with perturbed=False the served one; seeded
+    cotangents)."""
     from gsjax_torch.bench.run import FAT_CAP, LIVE_CAP, orbit_cameras, perturb
     from gsjax_torch.bench.synth import bonsai_like
     from gsjax_torch.core.config import RenderConfig
@@ -128,7 +135,8 @@ def view0_inputs(dev):
     from gsjax_torch.render.homesort import build_home_layout
     from gsjax_torch.render.project import project
 
-    g = perturb(bonsai_like(n=1_200_000, seed=0, sh_degree=0, device=dev))
+    g = bonsai_like(n=1_200_000, seed=0, sh_degree=0, device=dev)
+    g = perturb(g) if perturbed else g
     cam = orbit_cameras(30, 1920, 1080, device=dev)[0]
     cfg = RenderConfig(chunk=128, fat_cap=FAT_CAP, fat_live_cap=LIVE_CAP)
     cfg_flat = dataclasses.replace(cfg, backend="pallas")

@@ -19,8 +19,14 @@ Phases (any failure exits non-zero; there is no CPU path):
                autotune is not ported yet), backend stream — and the same
                with backend "pallas", the flat slot-stream path;
   6. kernels — on view 0, each kernel against its plain PyTorch version
-               at the path's shapes: repeat (A) and expand (B) bit-equal,
-               the stream blend (C) within 2e-5 at the 99.9th percentile,
+               at the path's shapes: repeat (A: the tail table and its 4
+               key rows) and expand (B: the live pairs in pid order and
+               their sort keys; the plain version is the dense expansion
+               and the compaction the kernel replaces) bit-equal, two
+               launches of each bit-equal, the path's sorted pairs and
+               tile starts equal to the old sort of the dense expansion,
+               each one's launch alone timed beside its wrapper; the
+               stream blend (C) within 2e-5 at the 99.9th percentile,
                and bit-equal to the baseline variant (rows 0-3 and 5; the
                exit C, row 4, wherever the baseline's is ≥ eps, below eps
                in both elsewhere); times; the forward's work at view 0 as
@@ -37,10 +43,14 @@ Phases (any failure exits non-zero; there is no CPU path):
                tiles, an image that is no multiple of the tile size,
                counted fat overflow), both backends: the card's kernel
                path against the CPU's plain path, and C or E against the
-               baseline variant on the scene's blend inputs as in 6;
+               baseline variant on the scene's blend inputs as in 6; then
+               the fat scene through the flat backend at every span B is
+               built for (odd, 1-15), card against CPU, and B there
+               bit-equal to its plain version and across two launches;
   7. serve   — zero the launch counters, render views 0-3 through
-               render_trajectory, read the counters: A, B and C launched
-               once per frame, no other kernel; frames finite; every
+               render_trajectory, read the counters: A, B (one kernel, its
+               live count read once) and C launched once per frame, no
+               other kernel; frames finite; every
                overflow counter 0; view 0's mean(img²) = 0.41342 ± 0.1%
                (the reference's black-target loss of this view);
   7b. serve flat — the same through backend "pallas": A, B and E once per
@@ -148,7 +158,7 @@ DEVICE = "cuda:0"
 # bytes, by 10x or more)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-OPS_PER_SLOT_A = 130  # ~20-step binary search + block decode + the cull
+OPS_PER_SLOT_A = 90  # block decode, window, home, the four-edge cull, keys
 OPS_PER_CANDIDATE_B = 60  # window tests + the four-edge quadratic minimum
 # the blends (C, E forward; D, F backward) per pair-pixel: α and the
 # transmittance wherever the pixel's C ≥ eps before the pair (live) and
@@ -687,6 +697,7 @@ def main() -> int:
     from gsjax_torch.bench.run import FAT_CAP, LIVE_CAP, orbit_cameras, perturb
     from gsjax_torch.bench.synth import bonsai_like
     from gsjax_torch.render import binning, flat, homesort, stream
+    from gsjax_torch.render.common import depth_bits
     from gsjax_torch.render.composite import (assemble_band, att_table,
                                               clipped_pair_stream)
     from gsjax_torch.tools import blend_fwd_variants
@@ -741,22 +752,38 @@ def main() -> int:
         cam0 = cams[0].to(dev)
         _, aux0, _, (p, ph, layout, bins) = staged_render(g, cam0, cfg)
         tiles_x, tiles_y = cfg.tiles_x(WIDTH), cfg.tiles_y(HEIGHT)
+        nh = ph.depth.shape[0]
 
         src18, fb, fbe, n_copies = homesort.fat_repeat_inputs(p, tiles_x, tiles_y, cfg)
         a_args = (src18, fb, fbe, n_copies, FAT_CAP, tiles_x, tiles_y,
                   cfg.tile_span, cfg.tile_size, cfg.alpha_min)
         tail_k, keys_k = homesort.repeat_fat_parents(*a_args)
+        tail_k2, keys_k2 = homesort.repeat_fat_parents(*a_args)
         tail_p, keys_p = homesort.repeat_fat_parents_plain(*a_args)
         err_a = max(float((tail_k - tail_p).abs().max()),
                     float((keys_k - keys_p).abs().max()))
         check(torch.equal(tail_k, tail_p) and torch.equal(keys_k, keys_p),
               f"kernel A (repeat) differs from its plain version: {err_a}")
+        check(torch.equal(tail_k, tail_k2) and torch.equal(keys_k, keys_k2),
+              "kernel A (repeat): two launches differ")
         n_live_copies = int((keys_k[0] < tiles_x * tiles_y).sum())
         nf = int((fb < 2**30).sum())
+        # the fat parents' rows (18 floats, fb, fbe, thr) read once, the
+        # tail table and the 4 key rows written once; the earlier count
+        # charged a 20-step search a slot and 8 key rows
         bound_a = bound(nf * 21 * 4 + nbytes(tail_k, keys_k), OPS_PER_SLOT_A * FAT_CAP)
+        bound_a_old = bound(nf * 21 * 4 + nbytes(tail_k) + 8 * FAT_CAP * 4, 130 * FAT_CAP)
         print(f"# A repeat: fat parents {nf}, copy slots "
               f"{int(n_copies)} of {FAT_CAP}, live copies {n_live_copies} of "
-              f"{LIVE_CAP}: bit-equal")
+              f"{LIVE_CAP}: bit-equal to the plain version, two launches bit-equal; "
+              f"bound {bound_a[0]:.4f} ms ({bound_a[1]}; the earlier count, with a "
+              f"search a slot and 8 key rows: {bound_a_old[0]:.4f})")
+        launch_a = (src18, fb, fbe,
+                    homesort.cull_threshold(src18[:, 6], cfg.alpha_min).contiguous(),
+                    torch.as_tensor(n_copies, dtype=torch.int64, device=dev), FAT_CAP,
+                    tiles_x, tiles_y, cfg.tile_span, cfg.tile_size)
+        print(f"# A repeat: launch alone {cuda_ms(lambda: homesort.launch_repeat(*launch_a), 20):.4f} "
+              f"ms (the wrapper adds the parents' cull thresholds)")
         results.append(dict(
             name="repeat_fat_parents", route="cuda",
             source="gsjax_torch/csrc/repeat.cu",
@@ -767,27 +794,67 @@ def main() -> int:
             bound_ms=bound_a[0], bound_by=bound_a[1], library_ms=None,
         ))
 
+        # B: the live pairs in pid order and their keys, against the plain
+        # version (the dense expansion, flattened in pid order, `nonzero`,
+        # the key: the pipeline the kernel replaces), twice; then the sorted pairs
+        # and tile starts of the path against the old sort of the dense
+        # expansion
+        b_args = (ph, layout, 0, tiles_y, tiles_x, cfg)
+        pid_k, key_k = binning.expand_live_pairs(*b_args)
+        pid_k2, key_k2 = binning.expand_live_pairs(*b_args)
+        pid_p, key_p = binning.expand_live_pairs_plain(*b_args)
+        same_b = pid_k.shape == pid_p.shape and bool(torch.equal(pid_k, pid_p)
+                                                     and torch.equal(key_k, key_p))
+        err_b = float((key_k - key_p).abs().max()) if pid_k.shape == pid_p.shape else None
+        check(same_b, f"kernel B (expand) differs from its plain version: "
+              f"{pid_k.shape[0]} against {pid_p.shape[0]} live pairs, max |Δ key| {err_b}")
+        check(torch.equal(pid_k, pid_k2) and torch.equal(key_k, key_k2),
+              "kernel B (expand): two launches differ")
         cols = binning.expand_cols(ph, layout, cfg)
-        b_args = (cols, 0, tiles_y, tiles_x, cfg.tile_size, cfg.tile_span)
-        tile_k, pid_k = binning.expand_pairs(*b_args)
-        tile_p, pid_p = binning.expand_pairs_plain(*b_args)
-        err_b = float((tile_k.to(torch.int64) - tile_p).abs().max())
-        check(torch.equal(tile_k, tile_p) and torch.equal(pid_k, pid_p),
-              f"kernel B (expand) differs from its plain version: {err_b}")
-        bound_b = bound(nbytes(cols, tile_k, pid_k),
-                        OPS_PER_CANDIDATE_B * tile_k.numel())
-        print(f"# B expand: home rows {ph.depth.shape[0]} (padded "
-              f"{cols.shape[1]}), live pairs "
-              f"{int((tile_k != binning.INVALID_TILE).sum())}: bit-equal")
+        tile2d = binning.expand_pairs_plain(cols, 0, tiles_y, tiles_x, cfg.tile_size,
+                                            cfg.tile_span)[0]
+        tile_flat = tile2d.T.reshape(-1)
+        live = torch.nonzero(tile_flat != binning.INVALID_TILE).squeeze(1)
+        dbits_pad = torch.nn.functional.pad(depth_bits(ph.depth), (0, cols.shape[1] - nh))
+        order = homesort.sort_perm(tile_flat[live], dbits_pad[live // cfg.tile_span ** 2])
+        starts_old = torch.searchsorted(
+            tile_flat[live][order],
+            torch.arange(tiles_x * tiles_y + 1, dtype=torch.int32, device=dev),
+            side="left").to(torch.int32)
+        check(torch.equal(live[order].to(torch.int32), bins.pid_sorted)
+              and torch.equal(starts_old, bins.tile_starts),
+              "bins: pid_sorted or tile_starts differ from the old sort of the dense "
+              "expansion")
+        del cols, tile2d, tile_flat, live, dbits_pad, order, starts_old
+        inputs_b = binning.expand_inputs(ph, layout, cfg)
+        launch_b = (*inputs_b, 0, tiles_y, tiles_x, cfg.tile_size, cfg.tile_span)
+        # each home row's fields read once (home tile, window, liveness,
+        # mean, conic, cull threshold, depth bits), 12 bytes a live pair
+        # written; the earlier count charged the 16-row column table and
+        # two dense [K, NH_pad] i32 outputs
+        nh_pad = -(-nh // 4096) * 4096
+        bound_b = bound(nh * (4 + 4 + 16 + 1 + 8 + 12 + 4 + 4) + nbytes(pid_k, key_k),
+                        OPS_PER_CANDIDATE_B * nh * cfg.tile_span ** 2)
+        bound_b_old = bound(nh_pad * (16 + 2 * cfg.tile_span ** 2) * 4,
+                            OPS_PER_CANDIDATE_B * nh_pad * cfg.tile_span ** 2)
+        ms_b_launch = cuda_ms(lambda: binning.launch_expand(*launch_b), 20)
+        print(f"# B expand: home rows {nh}, live pairs {pid_k.shape[0]} of "
+              f"{nh * cfg.tile_span ** 2} candidates: pid_live and key bit-equal to the "
+              f"plain version (the dense expansion and its compaction), two launches "
+              f"bit-equal; the path's pid_sorted and tile_starts equal the old sort's; "
+              f"launch alone {ms_b_launch:.4f} ms; bound {bound_b[0]:.4f} ms "
+              f"({bound_b[1]}; the earlier count, with the column table and dense "
+              f"outputs: {bound_b_old[0]:.4f})")
         results.append(dict(
             name="expand_pairs", route="cuda",
             source="gsjax_torch/csrc/expand.cu",
             replaces="gsjax/render/binning.py:51",
             max_abs_err=err_b,
-            ms=cuda_ms(lambda: binning.expand_pairs(*b_args), 20),
-            plain_ms=cuda_ms(lambda: binning.expand_pairs_plain(*b_args), 5),
+            ms=cuda_ms(lambda: binning.expand_live_pairs(*b_args), 20),
+            plain_ms=cuda_ms(lambda: binning.expand_live_pairs_plain(*b_args), 5),
             bound_ms=bound_b[0], bound_by=bound_b[1], library_ms=None,
         ))
+        del pid_k, pid_k2, pid_p, key_k, key_k2, key_p, inputs_b, launch_b, launch_a
 
         att = att_table(ph).contiguous()
         pid, starts, _ = clipped_pair_stream(bins, cfg)
@@ -880,9 +947,8 @@ def main() -> int:
             plain_ms=cuda_ms(lambda: flat.slots_forward_plain(*e_args), 2),
             bound_ms=bound_e[0], bound_by=bound_e[1], library_ms=None,
         ))
-        del src18, fb, fbe, tail_k, tail_p, keys_k, keys_p, cols, att_al, out_e, out_ep
-        del e_args, tile_of, cbase
-        del tile_k, tile_p, pid_k, pid_p, out_k, out_p, p, ph, layout, bins
+        del src18, fb, fbe, tail_k, tail_k2, tail_p, keys_k, keys_k2, keys_p, att_al
+        del out_e, out_ep, e_args, tile_of, cbase, out_k, out_p, p, ph, layout, bins
 
         # 6b. edge cases the bonsai view lacks, at the CPU tests' small
         # shapes: the card's kernel path against the CPU's plain path on
@@ -927,6 +993,37 @@ def main() -> int:
             if name == "overflow":
                 check(counters["n_fat_overflow"][0] > 0, "overflow not counted")
 
+        # 6b. kernel B at every span it is built for, on the fat edge
+        # scene: the flat backend's render, card against CPU, and B's
+        # live pairs against its plain version on the card, bit-equal, two
+        # launches bit-equal
+        _, scene_kw, cfg_kw, (w, h) = EDGE_CASES[1]
+        gc = small_scene(np.random.default_rng(7), **scene_kw)
+        gg = gt.Gaussians.from_numpy(
+            *(getattr(gc, f).detach().numpy() for f in RAW_FIELDS), device=dev)
+        cam = gt.Camera.create(fx=80.0, fy=80.0, width=w, height=h, device="cpu")
+        span_pairs = {}
+        for span in binning.EXPAND_ROWS:
+            cfg_s = gt.RenderConfig(backend="pallas", chunk=32, tile_span=span, **cfg_kw)
+            img_c = gt.render(gc, cam, cfg_s)
+            img_g, _, _, (_, ph_s, lay_s, _) = staged_render(gg, cam.to(dev), cfg_s)
+            d = (img_g.cpu() - img_c).abs()
+            check(float(torch.quantile(d.flatten(), 0.999)) <= 2e-5 and float(d.max()) <= 5e-3,
+                  f"span {span} (pallas): card vs cpu {float(d.max())}")
+            bs_args = (ph_s, lay_s, 0, cfg_s.tiles_y(h), cfg_s.tiles_x(w), cfg_s)
+            pid_s, key_s = binning.expand_live_pairs(*bs_args)
+            pid_s2, key_s2 = binning.expand_live_pairs(*bs_args)
+            pid_sp, key_sp = binning.expand_live_pairs_plain(*bs_args)
+            check(pid_s.shape == pid_sp.shape and torch.equal(pid_s, pid_sp)
+                  and torch.equal(key_s, key_sp),
+                  f"kernel B at span {span} differs from its plain version")
+            check(torch.equal(pid_s, pid_s2) and torch.equal(key_s, key_s2),
+                  f"kernel B at span {span}: two launches differ")
+            span_pairs[span] = (ph_s.depth.shape[0], pid_s.shape[0], float(d.max()))
+        print("# B at every span it is built for (fat edge scene, pallas; span: home rows, "
+              "live pairs, max |card - cpu| of the image): bit-equal to the plain version, "
+              f"two launches bit-equal; {span_pairs}")
+
     # 7 / 7b. serve: the main path through the user's entry point, one
     # backend at a time ---------------------------------------------------
     frames, loss0 = {}, {}
@@ -942,6 +1039,9 @@ def main() -> int:
               f"{serve_s * 1e3:.1f} ms ({serve_s * 1e3 / SERVE_VIEWS:.1f} ms/frame incl. "
               f"device-to-host copy); launches {launches}")
         check_launches(launches, backend, SERVE_VIEWS, train=False)
+        print(f"# serve ({backend}): kernel A launched {launches['repeat']} and kernel B "
+              f"(one kernel, its live count read once) {launches['expand']} times over "
+              f"{SERVE_VIEWS} frames: once a frame")
         fr = frames[backend]
         check(fr.shape == (SERVE_VIEWS, HEIGHT, WIDTH, 3), f"frames {fr.shape}")
         check(bool(np.isfinite(fr).all()), f"{backend}: non-finite pixels")

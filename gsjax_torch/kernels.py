@@ -56,12 +56,15 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # library → its C entry points: (argtypes); each returns
 # cudaGetLastError() as an int
 _SIGNATURES = {"path": {
-    # src18, fb, fbe, thr, nf, nc, fat_cap, tiles_x, tiles_y, span, ts,
-    # tail, keys, stream
-    "gsjax_repeat_fat_parents": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # src18, fb, fbe, thr, nf, n_copies (i64 on the card), fat_cap,
+    # tiles_x, tiles_y, span, ts, tail, keys, stream
+    "gsjax_repeat_fat_parents": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                                  _I, _P, _P, _P),
-    # cols, nh_pad, ty0, band_rows, tiles_x, ts, span, tile2d, pid2d, stream
-    "gsjax_expand_pairs": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # home_x, home_y, win, valid, mean2d, mean_stride, conic, conic_stride,
+    # thr, dbits, dbits_stride, nh, ty0, band_rows, tiles_x, ts, span,
+    # scratch, pid_live, key, stream
+    "gsjax_expand_live_pairs": (_P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _L, _I,
+                                _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # att, pid, starts, n_tiles, ty0, tiles_x, ts, chunk, k_slots,
     # alpha_clamp, alpha_min, eps_T, out, stream
     "gsjax_stream_forward": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,

@@ -41,8 +41,10 @@ _BIG = float(1 << 30)  # fb/fbe of the non-fat pad rows
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     """A 0-d float32 tensor on `like`'s device. Dividing by it is a true
     division; dividing a CUDA tensor by a Python float multiplies by the
-    reciprocal instead, which rounds differently."""
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    reciprocal instead, which rounds differently. Filled on the device:
+    torch.tensor(v, device=...) copies from the host and waits for the
+    stream."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def cull_threshold(opacity: torch.Tensor, alpha_min: float) -> torch.Tensor:
@@ -71,6 +73,17 @@ def _block_qmin(mx, my, ca, cb, cc, wx0, wx1, wy0, wy1, ts: float):
 # --------------------------------------------------------------------------
 
 
+def slot_parents(fb, fbe, nc: int, fat_cap: int):
+    """Each copy slot's parent row: (par [fat_cap] i64, the last row with
+    fb ≤ slot, clamped to ≥ 0; has [fat_cap] bool: the slot lies below
+    fbe there and below nc)."""
+    slot_i = torch.arange(fat_cap, dtype=torch.int32, device=fb.device)
+    slot = slot_i.to(torch.float32)
+    par = torch.searchsorted(fb, slot, right=True) - 1
+    parc = par.clamp(min=0)
+    return parc, (slot_i < nc) & (par >= 0) & (slot < fbe[parc])
+
+
 def repeat_fat_parents_plain(src18, fb, fbe, n_copies, fat_cap: int,
                              tiles_x: int, tiles_y: int, span: int, ts: int,
                              alpha_min: float):
@@ -80,9 +93,7 @@ def repeat_fat_parents_plain(src18, fb, fbe, n_copies, fat_cap: int,
     nc = min(int(n_copies), fat_cap)
     slot_i = torch.arange(fat_cap, dtype=torch.int32, device=src18.device)
     slot = slot_i.to(torch.float32)
-    par = torch.searchsorted(fb, slot, right=True) - 1
-    parc = par.clamp(min=0)
-    has = (par >= 0) & (slot < fbe[parc])
+    parc, has = slot_parents(fb, fbe, nc, fat_cap)
     a = torch.where(has[:, None], src18[parc], torch.zeros_like(src18[:1]))
     th = torch.where(has, thr[parc], torch.zeros_like(slot))
     col = lambda i: a[:, i]
@@ -107,9 +118,8 @@ def repeat_fat_parents_plain(src18, fb, fbe, n_copies, fat_cap: int,
     dep = torch.where(ok, col(7), _f32(1.0, a))
     cw = [torch.clamp(c.to(torch.float32), 0.0, 16383.0)
           for c in (cwx0, cwx1, cwy0, cwy1)]
+    keys = torch.stack([hk, dep, cw[0] * 16384.0 + cw[1], cw[2] * 16384.0 + cw[3]])
     zero = torch.zeros_like(slot)
-    keys = torch.stack([hk, dep, cw[0] * 16384.0 + cw[1],
-                        cw[2] * 16384.0 + cw[3], zero, zero, zero, zero])
     tail = torch.stack(
         [col(1), col(2), col(7), col(3), col(4), col(5), col(8),
          col(9), col(10), col(11), col(6), zero], dim=1,
@@ -126,14 +136,17 @@ def repeat_fat_parents(src18, fb, fbe, n_copies, fat_cap: int, tiles_x: int,
     src18 [NF, 18] f32: fat-compacted parent rows (col 0 = base, the first
     copy slot; 1-2 mean2d; 3-5 conic; 6 opacity; 7 depth; 8 radius; 9-11
     rgb; 12 blocks per row; 13-16 rect x0, y0, x1, y1; 17 n_ex); fb / fbe
-    [NF] f32: base / base + n_ex, 2^30 on non-fat pad rows; n_copies: the
-    live copy count. Returns
+    [NF] f32: base / base + n_ex, fb ascending (the fat parents' bases
+    strictly), 2^30 on non-fat pad rows; n_copies: the live copy count.
+    Slot j's parent is the last row with fb ≤ j, if j < fbe there and j <
+    nc = min(n_copies, fat_cap). Returns
       tail_tab [fat_cap, 12] f32 — parent attributes (mean2, depth, conic,
         radius, rgb, opacity, 0); zero where no parent covers the slot;
-      keys [8, fat_cap] f32 — row 0 home key (tiles_x·tiles_y sentinel
+      keys [4, fat_cap] f32 — row 0 home key (tiles_x·tiles_y sentinel
         when dead or culled), row 1 depth (1.0 when dead or culled), rows
         2/3 the copy window packed base 16384 (wx0·16384 + wx1,
-        wy0·16384 + wy1), rows 4-7 zero.
+        wy0·16384 + wy1). (The TPU kernel's rows 4-7, zero padding to 8
+        sublanes that no caller reads, are not kept.)
 
     Kernel A, csrc/repeat.cu; replaces the TPU kernel
     gsjax/render/homesort.py::_repeat_kernel. CPU tensors take the plain
@@ -150,13 +163,22 @@ def repeat_fat_parents(src18, fb, fbe, n_copies, fat_cap: int, tiles_x: int,
     if src18.shape != (nf, 18) or fb.shape != (nf,) or fbe.shape != (nf,):
         raise ValueError("repeat_fat_parents: expected src18 [NF, 18], fb/fbe [NF]")
     thr = cull_threshold(src18[:, 6], alpha_min).contiguous()
-    nc = min(int(n_copies), fat_cap)
+    n_copies = torch.as_tensor(n_copies, dtype=torch.int64, device=src18.device)
+    return launch_repeat(src18, fb, fbe, thr, n_copies, fat_cap, tiles_x, tiles_y, span, ts)
+
+
+def launch_repeat(src18, fb, fbe, thr, n_copies, fat_cap: int, tiles_x: int, tiles_y: int,
+                  span: int, ts: int):
+    """Launch kernel A on repeat_fat_parents' CUDA inputs (thr [NF] f32:
+    the parents' cull_threshold; n_copies: a 0-d i64 on the card, which
+    the kernel reads there, so no host sync) without waiting for it:
+    (tail_tab, keys)."""
+    nf = src18.shape[0]
     tail = torch.empty((fat_cap, 12), dtype=torch.float32, device=src18.device)
-    keys = torch.empty((8, fat_cap), dtype=torch.float32, device=src18.device)
-    lib = kernels.lib()
-    err = lib.gsjax_repeat_fat_parents(
+    keys = torch.empty((4, fat_cap), dtype=torch.float32, device=src18.device)
+    err = kernels.lib().gsjax_repeat_fat_parents(
         src18.data_ptr(), fb.data_ptr(), fbe.data_ptr(), thr.data_ptr(),
-        nf, nc, fat_cap, tiles_x, tiles_y, span, ts,
+        nf, n_copies.data_ptr(), fat_cap, tiles_x, tiles_y, span, ts,
         tail.data_ptr(), keys.data_ptr(), kernels.stream_ptr(src18),
     )
     kernels.check(err, "repeat_fat_parents")
@@ -392,13 +414,17 @@ def _exact_rows(p, tiles_x, tiles_y, cfg):
             tail_tab, n_ovf, n_copies, live_cap, seg_base)
 
 
+def sort_key(key_hi: torch.Tensor, dkey: torch.Tensor) -> torch.Tensor:
+    """(key_hi << 32) | (dkey + 2^31) as int64: ascending in (key_hi,
+    dkey). dkey is biased by 2^31 so the signed i32 order survives the
+    packing (a culled row's depth may be negative)."""
+    return (key_hi.to(torch.int64) << 32) | (dkey.to(torch.int64) + (1 << 31))
+
+
 def sort_perm(key_hi: torch.Tensor, dkey: torch.Tensor) -> torch.Tensor:
     """Permutation sorting rows by (key_hi, dkey, row index), all
-    ascending: one stable sort of an int64 key. dkey is biased by 2^31 so
-    the signed i32 order survives the packing (a culled row's depth may
-    be negative)."""
-    key = (key_hi.to(torch.int64) << 32) | (dkey.to(torch.int64) + (1 << 31))
-    return torch.sort(key, stable=True).indices
+    ascending: one stable sort of sort_key's int64 key."""
+    return torch.sort(sort_key(key_hi, dkey), stable=True).indices
 
 
 def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig):

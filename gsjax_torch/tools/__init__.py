@@ -16,10 +16,12 @@ card. This module holds what the four share.
 
     python -m gsjax_torch.tools.blend_bwd_variants         # D, F variants
     python -m gsjax_torch.tools.blend_fwd_variants         # C, E variants
+    python -m gsjax_torch.tools.layout_variants            # A, B variants
 
-build edited copies of the blend backward (kernels D and F) or forward
-(C and E) — other groupings, ablations — and time them at the bonsai
-1080p orbit's view 0, on the card only.
+build edited copies of the blend backward (kernels D and F), the blend
+forward (C and E) or the layout kernels (A and B) — other groupings,
+ablations — and time them at the bonsai 1080p orbit's view 0, on the
+card only.
 """
 
 from __future__ import annotations

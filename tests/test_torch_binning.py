@@ -1,6 +1,6 @@
 """gsjax_torch parity: kernel B's plain version (pair expansion with the
-exact ellipse cull) and the (tile, depth, pid) pair sort against gsjax,
-exactly.
+exact ellipse cull, compacted in pid order) and the (tile, depth, pid)
+pair sort against gsjax, exactly.
 
 Both packages bin the SAME home layout (gsjax's, carried over as numpy),
 so every tile id, pid and segment offset must be equal. gsjax's Pallas
@@ -72,7 +72,7 @@ def _case(name):
         }
         expand = jbin.expand_home_pairs(
             ph, lay, 0, cfg.tiles_y(H), cfg.tiles_x(W), cfg
-        )[:2]
+        )[:3]
         return ph, lay, bins, expand
 
     ph, lay, bins, expand = reference(g, cam)
@@ -87,19 +87,24 @@ def cases():
 
 @pytest.mark.parametrize("name", ["fat", "ties"])
 def test_expand_home_pairs_matches(cases, name):
+    """Kernel B's plain version (the live candidates in pid order and
+    their sort keys) against gsjax's dense expansion, compacted in numpy
+    in pid order."""
     c = cases[name]
     p, layout = to_torch(c["ph"], c["lay"])
     cfg = c["cfgt"]
-    tile2d, pid2d, dbits, nh_pad = tbin.expand_home_pairs(
-        p, layout, 0, cfg.tiles_y(H), cfg.tiles_x(W), cfg
-    )
-    nh = p.depth.shape[0]
-    tj, pj = (np.asarray(a) for a in c["expand"])
-    assert tile2d.shape == tj.shape and nh_pad == tj.shape[1]
-    np.testing.assert_array_equal(tile2d.numpy()[:, :nh], tj[:, :nh])
-    np.testing.assert_array_equal(pid2d.numpy()[:, :nh], pj[:, :nh])
-    live = tj[:, :nh] != tbin.INVALID_TILE
-    assert 0 < live.sum() < live.size  # some candidates culled
+    pid_live, key = tbin.expand_live_pairs(p, layout, 0, cfg.tiles_y(H), cfg.tiles_x(W), cfg)
+    nh, k = p.depth.shape[0], cfg.tile_span ** 2
+    tj, pj, dj = (np.asarray(a) for a in c["expand"])
+    tile_flat = tj.T.reshape(-1)  # index = pid
+    live = np.nonzero(tile_flat != tbin.INVALID_TILE)[0]
+    assert live.max() < nh * k  # the reference's pad rows emit nothing
+    assert 0 < live.size < nh * k  # some candidates culled
+    np.testing.assert_array_equal(pid_live.numpy(), pj.T.reshape(-1)[live])
+    np.testing.assert_array_equal(pid_live.numpy(), live)
+    np.testing.assert_array_equal((key >> 32).numpy(), tile_flat[live])
+    want = (tile_flat[live].astype(np.int64) << 32) | (dj[live // k].astype(np.int64) + 2**31)
+    np.testing.assert_array_equal(key.numpy(), want)
 
 
 @pytest.mark.parametrize("name", ["fat", "ties"])

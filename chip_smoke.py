@@ -98,9 +98,11 @@ Phases (any failure exits non-zero; there is no CPU path):
                plain version at the probe's full shapes, on the probe's
                inputs and random ones: G (mosaic) and I (scalars, 4
                variants, G = 8192) bit-equal; J (chunk, 17 variants, G =
-               4096) value and checksum under the CPU tests' tolerances; H
+               4096 blocks of one shape) value and checksum under the CPU
+               tests' tolerances, also on its edge inputs; H
                (compact, nh = 2,398,208, classes 1, 3, 9) stream and count
-               bit-equal; times (I and J also as ns per block over base; a
+               bit-equal; times (I and J also as ns per block over base, J's
+               beside each variant's bound per block and its base; a
                J variant at or below base, but for the two whose work is
                nil by design, is flagged as suspect) and H's one boolean
                index. The counters, zeroed before each probe's comparison
@@ -174,7 +176,10 @@ ATT_BYTES = 9 * 4  # one pair's attribute row
 # the loop and the sums. I: per block, by variant, the inputs it needs
 # (six scalars or 128 ids) and its integer operations. J: by variant, the
 # input bytes it needs (every block reads the same chunk) and its integer
-# or fp32 operations per block. H: per lane and class.
+# or fp32 operations per block; the gathers' on this run's ids
+# (ops_per_block_j: a test per pair row and round, an add per element of
+# a selected row), and a result that every row of acc (banddyn) or of
+# scatter3's window repeats counted once. H: per lane and class.
 OPS_MOSAIC = 8 * 2048 * 6 + 128 * 4 * 3
 BYTES_PER_BLOCK_I = {"base": 0, "smem": 24, "vmem": 24, "reduce": 512}
 OPS_PER_BLOCK_I = {"base": 0, "smem": 6, "vmem": 6, "reduce": 128 * 16 + 6}
@@ -182,13 +187,12 @@ BYTES_READ_J = {"roll": 1024, "swapaxes": 512, "decode": 512, "onehot3": 512,
                 "scatter3": 512, "alpha": 1024, "hs_prod": 65536, "dots": 65536,
                 "bwdsums": 65536, "fori0": 4, "when_f": 4, "banddyn": 24576 + 12,
                 "gatherreal": 512, "dynread": 44, "flatgather": 552, "maskwalk": 532}
-OPS_PER_BLOCK_J = {  # pixel variants: 128 rows × 256 pixels; gathers: 128 × 32
+OPS_PER_BLOCK_J = {  # pixel variants: 128 rows × 256 pixels; the gathers: ops_per_block_j
     "base": 0, "roll": 256 * 2, "swapaxes": 128, "decode": 128 * 8,
-    "onehot3": 128 * 32 * 3 * 4, "scatter3": 128 * 3 * 5 + 16 * 384 * 3,
-    "alpha": 128 * 256 * 26, "hs_prod": 128 * 256 * 4, "dots": 128 * 256 * 8,
-    "bwdsums": 128 * 256 * 10, "fori0": 6, "when_f": 6, "banddyn": 32 * 384 + 128 * 32 * 3,
-    "gatherreal": 128 * 32 * 3 * 6, "dynread": 20, "flatgather": 128 * 32 * 10 * 6,
-    "maskwalk": 128 * 32 * 9 * 6}
+    "scatter3": 128 * 3 * 5 + 384 * 3, "alpha": 128 * 256 * 26, "hs_prod": 128 * 256 * 4,
+    "dots": 128 * 256 * 8, "bwdsums": 128 * 256 * 10, "fori0": 6, "when_f": 6,
+    "banddyn": 32 * 384 + 32 * 3, "dynread": 20}
+OPS_TEST_J = 5  # a gather's test of a pair row in a round: class, window offset, ands
 OPS_PER_LANE_CLASS_H = 4  # test the bit, its ballot, popcounts, the position
 
 
@@ -224,6 +228,19 @@ def small_scene(rng, n, spread, z_range, log_scale_boost=0.0):
     return Gaussians.from_activated(means=means, scales=scales, quats=quats,
                                     opacities=rng.uniform(0.3, 0.95, n), sh=sh,
                                     device="cpu")
+
+
+def ops_per_block_j(variant: str, rows) -> int:
+    """The operations per block J's variant needs on `rows`: a gather's
+    window test of each pair row in each round, and an add for each of the
+    32 elements of each row a round selects (probe_chunk.gather_
+    selections); the others' OPS_PER_BLOCK_J."""
+    from gsjax_torch.tools import probe_chunk as pj
+
+    if variant in pj.GATHERS:
+        rounds, selected = pj.gather_selections(variant, rows)
+        return rounds * pj.CHUNK * OPS_TEST_J + selected * 32
+    return OPS_PER_BLOCK_J[variant]
 
 
 def fail(msg: str) -> None:
@@ -594,10 +611,12 @@ def probes_phase(dev, card) -> tuple[list, dict]:
           f"inputs); G = {g_i} blocks, ms {_fmt(ms_i)}; ns per block over base (timed "
           f"beside it) {_fmt(over_i, 2)}")
 
-    # J: value and checksum under the tests' tolerances; ns per block over base
+    # J: value and checksum under the tests' tolerances on the probe's, the
+    # random and the edge inputs; ns per block over base beside each
+    # variant's bound per block
     chunk = Counted("probe_chunk", pj.probe_chunk)
     g_j = pj.G
-    inputs = [pj.probe_inputs(dev), pj.random_inputs(dev)]
+    inputs = [pj.probe_inputs(dev), pj.random_inputs(dev), *pj.edge_inputs(dev)]
     err_j = 0.0
     for v in pj.VARIANTS:
         for rw, bd in inputs:
@@ -609,14 +628,16 @@ def probes_phase(dev, card) -> tuple[list, dict]:
             err_j = max(err_j, float((k[-1] - p[-1]).abs().max()))
     chunk.check()
     chunk.start()
-    ms_j, plain_j, over_j, n_bytes, n_ops = {}, {}, {}, 0, 0
+    ms_j, plain_j, over_j, base_j, bound_j, n_bytes, n_ops = {}, {}, {}, {}, {}, 0, 0
     for v in pj.VARIANTS:
-        ms_j[v], base_ms = time_over_base_ms(lambda: chunk(v, *inputs[0]),
-                                             lambda: chunk("base", *inputs[0]), dev, 50)
-        over_j[v] = (ms_j[v] - base_ms) / g_j * 1e6
+        ms_j[v], base_j[v] = time_over_base_ms(lambda: chunk(v, *inputs[0]),
+                                               lambda: chunk("base", *inputs[0]), dev, 50)
+        over_j[v] = (ms_j[v] - base_j[v]) / g_j * 1e6
         plain_j[v] = cuda_ms(lambda: pj.probe_chunk_plain(v, *inputs[0]), 3)
         n_bytes += BYTES_READ_J.get(v, 0) + 8 * g_j
-        n_ops += OPS_PER_BLOCK_J[v] * g_j
+        ops = ops_per_block_j(v, inputs[0][0]) * g_j
+        n_ops += ops
+        bound_j[v] = bound(BYTES_READ_J.get(v, 0) + 8 * g_j, ops)[0] / g_j * 1e6
     j_bound = bound(n_bytes, n_ops)
     results.append(dict(
         name="probe_chunk", route="cuda", source="gsjax_torch/csrc/probe_chunk.cu",
@@ -624,11 +645,16 @@ def probes_phase(dev, card) -> tuple[list, dict]:
         ms=sum(ms_j.values()), plain_ms=sum(plain_j.values()), bound_ms=j_bound[0],
         bound_by=j_bound[1], library_ms=None))
     suspect = [v for v in pj.VARIANTS[1:] if v not in J_NO_WORK and over_j[v] <= 0]
+    base_ms = statistics.mean(base_j.values())
     detail["probe_chunk"] = dict(ms=ms_j, plain_ms=plain_j, ns_per_block_over_base=over_j,
-                                 suspect=suspect)
+                                 bound_ns_per_block=bound_j, base_ms=base_ms, suspect=suspect)
     print(f"# J probe_chunk on {card}: 17 variants agree with their plain versions "
-          f"(probe and random inputs, max |Δ| {err_j:.3e}); G = {g_j} blocks, ms "
-          f"{_fmt(ms_j)}; ns per block over base (timed beside it) {_fmt(over_j, 2)}")
+          f"(probe, random and both edge inputs, max |Δ| {err_j:.3e}); G = {g_j} blocks of "
+          f"one shape, its base {base_ms:.4f} ms (mean of the {len(base_j)} timings "
+          f"beside the variants, {min(base_j.values()):.4f}-{max(base_j.values()):.4f}); "
+          f"ms {_fmt(ms_j)}")
+    print(f"# J ns per block over base (timed beside it) / bound per block on {card}: "
+          + ", ".join(f"{v} {over_j[v]:.2f} / {bound_j[v]:.2f}" for v in pj.VARIANTS[1:]))
     for v in suspect:
         print(f"# J SUSPECT: variant {v} takes {over_j[v]:.2f} ns per block over base "
               f"(at or below 0: was its work eliminated?)")

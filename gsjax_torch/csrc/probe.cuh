@@ -49,6 +49,48 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;  // lane 0 holds the warp's sum
 }
 
+__host__ __device__ constexpr int log2i(int x) {
+  return x <= 1 ? 0 : 1 + log2i(x / 2);
+}
+
+// Sum P rows of K values over the warp's 32 lanes in one reduce-scatter:
+// v[q·K + k] is row q's value k (P a power of two, at most 32). log2 P
+// halving steps (lanes across offset 16, 8, …, 32/P swap halves, each
+// keeps one half and adds the other's: K(P−1) shuffles) leave lane l the K
+// values of row l / (32/P), summed over the lanes that share its top
+// bits; a butterfly over the remaining log2(32/P) bits finishes the sums
+// (K·log2(32/P) shuffles), so every lane of row q's group holds q's K sums
+// in v[0..K−1]. One warp_sum per value costs 5PK. This is the scheme of
+// the blend backward's warp_reduce_scatter (gsjax_torch/csrc/blend.cuh:416,
+// K = 9 gradients), with K a parameter: kernel J's bwdsums prices it.
+template <int P, int K>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[P * K], int lane) {
+  static_assert(P >= 1 && P <= 32 && (P & (P - 1)) == 0, "P: a power of two <= 32");
+  // constant trip counts, fully unrolled: every index of v is a constant
+  // and v stays in registers
+  constexpr int kHalvings = log2i(P);
+#pragma unroll
+  for (int lvl = 0; lvl < kHalvings; ++lvl) {
+    const int off = 16 >> lvl;
+    const int half = (P * K) >> (lvl + 1);
+    const bool hi = (lane & off) != 0;
+#pragma unroll
+    for (int j = 0; j < (P * K) / 2; ++j) {
+      if (j < half) {
+        const float send = hi ? v[j] : v[j + half];
+        const float keep = hi ? v[j + half] : v[j];
+        v[j] = keep + __shfl_xor_sync(kFull, send, off);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = kHalvings; b < 5; ++b) {
+    const int off = 16 >> b;
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(kFull, v[k], off);
+  }
+}
+
 // Sum of v over the block (blockDim.x a multiple of 32, at most 1024):
 // each warp's shuffle sum, then the warps' sums added in warp order by
 // thread 0 — the same order in every launch. red holds 32 floats. The

@@ -21,16 +21,27 @@ card. This module holds what the four share.
 build edited copies of the blend backward (kernels D and F), the blend
 forward (C and E) or the layout kernels (A and B) — other groupings,
 ablations — and time them at the bonsai 1080p orbit's view 0, on the
-card only.
+card only;
+
+    python -m gsjax_torch.tools.chunk_variants             # J's layouts, groupings
+
+does the same for kernel J at its own shapes. The four share edit,
+build_edited, loaded and ptxas_kernels below.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
+import os
+import re
 import subprocess
 import time
 
 import torch
+
+from gsjax_torch import kernels
 
 REPLAYS = 10  # graph replays per device timing
 
@@ -106,3 +117,64 @@ def wrap_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 → int32 with two's-complement wrap-around (jnp's int32 sums
     wrap; torch's int32 sum widens to int64)."""
     return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def edit(name: str, src: str, edits) -> str:
+    """`src` with each (regex, replacement, matches expected) of `edits`
+    applied in turn; raises ValueError when one matches another number of
+    times, so an edited build never silently builds the shipped text."""
+    for pattern, repl, want in edits:
+        src, n = re.subn(pattern, repl, src)
+        if n != want:
+            raise ValueError(f"{name}: {pattern!r} matched {n} times, not {want}")
+    return src
+
+
+def build_edited(name: str, edited: dict, copied=()) -> str:
+    """The library of an edited copy of gsjax_torch/csrc, built if missing
+    under _build/variants/<name>_<hash>: the files in `edited` (file name
+    → text) as given, the files named in `copied` as they are in csrc;
+    its .cu files are compiled. The hash covers every file's name and text
+    and nvcc's flags. Returns the library's path."""
+    texts = dict(edited)
+    for f in copied:
+        with open(os.path.join(kernels.CSRC, f)) as fh:
+            texts[f] = fh.read()
+    h = hashlib.sha256(" ".join(kernels.NVCC_FLAGS).encode())
+    for f in sorted(texts):
+        h.update(f.encode() + b"\0" + texts[f].encode())
+    d = os.path.join(kernels.BUILD_DIR, "variants", f"{name}_{h.hexdigest()[:12]}")
+    path = os.path.join(d, "lib.so")
+    if not os.path.exists(path):
+        os.makedirs(d, exist_ok=True)
+        for f, text in texts.items():
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        kernels.compile_library(d, tuple(f for f in sorted(texts) if f.endswith(".cu")), path)
+    return path
+
+
+@contextlib.contextmanager
+def loaded(library: str, path: str, entry_points):
+    """Inside, the wrappers of `library` ("path" or "probes") launch
+    `entry_points` from the library at `path`; the shipped library is
+    restored on the way out."""
+    shipped = kernels.lib(library)
+    kernels._libs[library] = kernels.load(
+        path, {n: kernels._SIGNATURES[library][n] for n in entry_points})
+    try:
+        yield
+    finally:
+        kernels._libs[library] = shipped
+
+
+def ptxas_kernels(path: str) -> list:
+    """[(mangled kernel name, dict(registers, stack, spill_stores,
+    spill_loads))] in the order of the ptxas report beside the library at
+    `path`."""
+    with open(kernels.ptxas_log(path)) as fh:
+        found = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+                           r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+                           r"Used (\d+) registers", fh.read(), re.S)
+    return [(k, dict(registers=int(r), stack=int(s), spill_stores=int(st),
+                     spill_loads=int(ld))) for k, s, st, ld, r in found]

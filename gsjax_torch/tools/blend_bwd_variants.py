@@ -24,18 +24,15 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import contextlib
 import dataclasses
-import hashlib
 import json
 import os
 import re
-import shutil
 
 import torch
 
 from gsjax_torch import kernels
-from gsjax_torch.tools import card_line
+from gsjax_torch.tools import build_edited, card_line, edit, loaded, ptxas_kernels
 
 VARIANTS = ("4x2,2x2,8x2,4x1,2x4,4x4,4x2+no-reduce,4x2+no-grad,"
             "4x2+no-grad+no-reduce,4x2+no-stop")
@@ -59,66 +56,26 @@ def variant_source(variant: str, src: str) -> str:
     pairs, pixels = (int(x) for x in grouping.split("x"))
     edits = [(r"constexpr int kBwdPairs = \d+;", f"constexpr int kBwdPairs = {pairs};", 1),
              (r"constexpr int kBwdPixels = \d+;", f"constexpr int kBwdPixels = {pixels};", 1)]
-    for name in ablations:
-        edits += ABLATIONS[name]
-    for pattern, repl, want in edits:
-        src, n = re.subn(pattern, repl, src)
-        if n != want:
-            raise ValueError(f"{variant}: {pattern!r} matched {n} times in blend.cuh, "
-                             f"not {want}")
-    return src
-
-
-def build_edited(variant: str, blend: str, sources) -> str:
-    """The library of `sources` built against `blend` (an edited
-    blend.cuh's text) under gsjax_torch/_build/variants (built if
-    missing); returns its path."""
-    h = hashlib.sha256(blend.encode())
-    for name in ("common.cuh",) + tuple(sources):
-        with open(os.path.join(kernels.CSRC, name), "rb") as fh:
-            h.update(fh.read())
-    d = os.path.join(kernels.BUILD_DIR, "variants", f"{variant}_{h.hexdigest()[:12]}")
-    path = os.path.join(d, "lib.so")
-    if not os.path.exists(path):
-        os.makedirs(d, exist_ok=True)
-        for name in ("common.cuh",) + tuple(sources):
-            shutil.copy(os.path.join(kernels.CSRC, name), d)
-        with open(os.path.join(d, "blend.cuh"), "w") as fh:
-            fh.write(blend)
-        kernels.compile_library(d, sources, path)
-    return path
+    return edit(variant, src, edits + [e for name in ablations for e in ABLATIONS[name]])
 
 
 def build_variant(variant: str) -> str:
     """The variant's library (built if missing), with D's and F's entry
     points; returns its path."""
     with open(os.path.join(kernels.CSRC, "blend.cuh")) as fh:
-        return build_edited(variant, variant_source(variant, fh.read()), SOURCES)
+        return build_edited(variant, {"blend.cuh": variant_source(variant, fh.read())},
+                            ("common.cuh",) + SOURCES)
 
 
 def ptxas_summary(path: str, kernel: str = "blend_bwd_kernel") -> dict:
     """{row source: registers, stack frame and spill bytes} of `kernel`'s
     instantiations, from the library's ptxas report."""
-    with open(kernels.ptxas_log(path)) as fh:
-        log = fh.read()
-    found = re.findall(rf"Compiling entry function '\w*{kernel}\w*?(PairRows|SlotRows)"
-                       r"\w*'.*?(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
-                       r"bytes spill loads.*?Used (\d+) registers", log, re.S)
-    return {rows: dict(registers=int(r), stack=int(s), spill_stores=int(st),
-                       spill_loads=int(ld)) for rows, s, st, ld, r in found}
-
-
-@contextlib.contextmanager
-def loaded(path: str, entry_points=ENTRY_POINTS):
-    """The wrappers launch the library at `path` for `entry_points` (D's
-    and F's by default) while inside."""
-    sigs = {n: kernels._SIGNATURES["path"][n] for n in entry_points}
-    shipped = kernels.lib()
-    kernels._libs["path"] = kernels.load(path, sigs)
-    try:
-        yield
-    finally:
-        kernels._libs["path"] = shipped
+    out = {}
+    for name, p in ptxas_kernels(path):
+        m = re.search(rf"{kernel}\w*?(PairRows|SlotRows)", name)
+        if m:
+            out[m.group(1)] = p
+    return out
 
 
 def view0_inputs(dev, perturbed: bool = True):
@@ -207,7 +164,7 @@ def main(argv=None) -> int:
         dp = stream.stream_backward_plain(*d_args)
         rows = []
         for v in variants:
-            with loaded(paths[v]):
+            with loaded("path", paths[v], ENTRY_POINTS):
                 r = dict(variant=v, ptxas=ptxas_summary(paths[v]),
                          d_kernel_ms=_ms(lambda: stream.stream_backward_pairs(
                              dpair, marks, *d_args), args.reps),

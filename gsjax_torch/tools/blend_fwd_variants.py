@@ -31,9 +31,9 @@ import re
 
 import torch
 
-from gsjax_torch import kernels
+from gsjax_torch import kernels, tools
 from gsjax_torch.tools import blend_bwd_variants as bwd
-from gsjax_torch.tools import card_line
+from gsjax_torch.tools import build_edited, card_line, edit
 
 VARIANTS = "2x8,4x8,2x16,2x4,1x8,1x16,2x8+no-cull,2x8+no-stop,baseline"
 BASELINE = "1x16+no-cull+no-stop"
@@ -58,26 +58,20 @@ def variant_source(variant: str, src: str) -> str:
     pixels, width = (int(x) for x in grouping.split("x"))
     edits = [(r"constexpr int kFwdPixels = \d+;", f"constexpr int kFwdPixels = {pixels};", 1),
              (r"constexpr int kFwdWarpW = \d+;", f"constexpr int kFwdWarpW = {width};", 1)]
-    for name in ablations:
-        edits += ABLATIONS[name]
-    for pattern, repl, want in edits:
-        src, n = re.subn(pattern, repl, src)
-        if n != want:
-            raise ValueError(f"{variant}: {pattern!r} matched {n} times in blend.cuh, "
-                             f"not {want}")
-    return src
+    return edit(variant, src, edits + [e for name in ablations for e in ABLATIONS[name]])
 
 
 def build_variant(variant: str) -> str:
     """The variant's library (built if missing), with C's and E's entry
     points; returns its path."""
     with open(os.path.join(kernels.CSRC, "blend.cuh")) as fh:
-        return bwd.build_edited(variant, variant_source(variant, fh.read()), SOURCES)
+        return build_edited(variant, {"blend.cuh": variant_source(variant, fh.read())},
+                            ("common.cuh",) + SOURCES)
 
 
 def loaded(path: str):
     """The forward wrappers launch the library at `path` while inside."""
-    return bwd.loaded(path, ENTRY_POINTS)
+    return tools.loaded("path", path, ENTRY_POINTS)
 
 
 def matches_baseline(out, base, eps: float) -> tuple[bool, str]:

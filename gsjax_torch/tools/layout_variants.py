@@ -25,17 +25,14 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import contextlib
-import hashlib
 import json
 import os
 import re
-import shutil
 
 import torch
 
 from gsjax_torch import kernels
-from gsjax_torch.tools import card_line
+from gsjax_torch.tools import build_edited, card_line, edit, loaded, ptxas_kernels
 
 # kernel → its source, and its ablations: name → [(regex, replacement,
 # matches expected)]. A variant is a kernel and its ablations joined by
@@ -82,12 +79,7 @@ def variant_source(variant: str, src: str) -> str:
     """The kernel source `src` edited into `variant`; raises ValueError
     when an edit does not match as often as it expects."""
     kernel, *ablations = variant.split("+")
-    for name in ablations:
-        for pattern, repl, want in ABLATIONS[kernel][name]:
-            src, n = re.subn(pattern, repl, src)
-            if n != want:
-                raise ValueError(f"{variant}: {pattern!r} matched {n} times, not {want}")
-    return src
+    return edit(variant, src, [e for name in ablations for e in ABLATIONS[kernel][name]])
 
 
 def build_variant(variant: str) -> str:
@@ -95,37 +87,13 @@ def build_variant(variant: str) -> str:
     returns its path."""
     name = SOURCES[variant.split("+")[0]]
     with open(os.path.join(kernels.CSRC, name)) as fh:
-        text = variant_source(variant, fh.read())
-    with open(os.path.join(kernels.CSRC, "common.cuh"), "rb") as fh:
-        h = hashlib.sha256(fh.read() + text.encode() + " ".join(kernels.NVCC_FLAGS).encode())
-    d = os.path.join(kernels.BUILD_DIR, "variants", f"{variant}_{h.hexdigest()[:12]}")
-    path = os.path.join(d, "lib.so")
-    if not os.path.exists(path):
-        os.makedirs(d, exist_ok=True)
-        shutil.copy(os.path.join(kernels.CSRC, "common.cuh"), d)
-        with open(os.path.join(d, name), "w") as fh:
-            fh.write(text)
-        kernels.compile_library(d, (name,), path)
-    return path
+        return build_edited(variant, {name: variant_source(variant, fh.read())},
+                            ("common.cuh",))
 
 
 def registers(path: str) -> list:
     """Registers of each kernel in the library's ptxas report."""
-    with open(kernels.ptxas_log(path)) as fh:
-        return [int(r) for r in re.findall(r"Used (\d+) registers", fh.read())]
-
-
-@contextlib.contextmanager
-def loaded(path: str, entry_point: str):
-    """The path library's `entry_point` comes from the library at `path`
-    while inside."""
-    shipped = kernels.lib()
-    kernels._libs["path"] = kernels.load(
-        path, {entry_point: kernels._SIGNATURES["path"][entry_point]})
-    try:
-        yield
-    finally:
-        kernels._libs["path"] = shipped
+    return [p["registers"] for _, p in ptxas_kernels(path)]
 
 
 def ms(fn, reps: int) -> float:
@@ -237,7 +205,7 @@ def main(argv=None) -> int:
         for v, path in paths.items():
             src = SOURCES[v.split("+")[0]]
             entry, time_fn, out_fn = shipped[src]
-            with loaded(path, entry):
+            with loaded("path", path, (entry,)):
                 got = out_fn()
                 same = all(x.shape == y.shape and torch.equal(x, y)
                            for x, y in zip(got, ref[src]))

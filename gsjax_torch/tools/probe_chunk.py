@@ -1,11 +1,17 @@
 """J: the per-op cost of one blend chunk (tools/probe_chunk.py) on Hopper.
 
 Each of 17 variants runs one sub-op of a chunk — 128 pair rows against
-256 pixels, one thread per pixel, the chunk's rows staged in shared
-memory, as kernels C-F run it — in G blocks; its time over `base`, per
-block, is that op's cost. Every block writes the value the probe writes
-and a checksum of all the elements its variant computed (so the compiler
-keeps the work). Details per variant in csrc/probe_chunk.cu.
+256 pixels — in G blocks of 128 threads, two pixels a thread, the way
+kernels C-F run it now: the pixel variants load a row's two pixels in one
+32-bit word, bwdsums sums four rows' six values over a warp's pixels in
+one reduce-scatter, banddyn reads its column runs along the run, and the
+gathers read band rows in place with lanes over pair rows. `base` runs
+the same block shape, so a variant's time over `base`, per block, is
+that op's cost. Every block writes the value the probe writes and a
+checksum of all the elements its variant computed (so the compiler
+keeps the work). Details per variant in
+csrc/probe_chunk.cu; `python -m gsjax_torch.tools.chunk_variants` times
+the other layouts and groupings.
 
     python -m gsjax_torch.tools.probe_chunk [v1,v2,...] [--device cpu]
 """
@@ -34,6 +40,8 @@ VARIANTS = ("base", "roll", "swapaxes", "decode", "onehot3", "scatter3", "alpha"
 # than the probe's (a log-step product, the MXU's dot, lane reductions):
 # within 1e-6 relative of the probe. Every other value is bit-equal.
 FLOAT_SUMS = ("hs_prod", "dots", "bwdsums")
+GATHERS = ("onehot3", "gatherreal", "flatgather", "maskwalk")  # acc from band loads a round
+MASKS = (0x13, 0x0B, 0x26)  # maskwalk's masks (`x % 1 | mask`)
 VALUE_RTOL = 1e-6
 # the checksum of a variant with floating-point elements sums 4k-33k of
 # them in the kernel's block order against the plain version's: within
@@ -133,17 +141,30 @@ def _chunk_values(variant: str, rows, band):
             acc = acc + s2
         return float(acc[0]), float(acc.double().sum())
 
-    # the gather variants: acc [CHUNK, 32]
-    sid, crow = _decode(r0)
+    # banddyn and the gather variants: acc [CHUNK, 32]
     acc = torch.zeros((CHUNK, 32), dtype=torch.float32, device=dev)
-    if variant == "onehot3":
-        for r in range(3):
-            hit, off = _window(sid, _wrap(int(sid[r]) // WINW * WINW))
-            acc = acc + _selected(band32, hit & (crow == r), r * WINW, off)
-    elif variant == "banddyn":
+    if variant == "banddyn":
         for r in range(3):
             start = s[r] % 3 * WINW
             acc = acc + band32[:32, start:start + WINW].sum(dim=1)[None, :]
+    elif variant in GATHERS:
+        for hit, start, off in _gather_rounds(variant, r0):
+            acc = acc + _selected(band32, hit, start, off)
+    else:
+        raise ValueError(f"probe_chunk: unknown variant {variant!r}")
+    return float(acc[0, 0]), float(acc.double().sum())
+
+
+def _gather_rounds(variant: str, r0):
+    """The rounds of a gather variant on the chunk's ids r0 (int64), in the
+    probe's order: (hit [CHUNK] bool, start, off) — where hit[i], element
+    (i, c) of acc adds band[c, start + off[i]]."""
+    sid, crow = _decode(r0)
+    s = [int(x) for x in r0[:5]]
+    if variant == "onehot3":
+        for r in range(3):
+            hit, off = _window(sid, _wrap(int(sid[r]) // WINW * WINW))
+            yield hit & (crow == r), r * WINW, off
     elif variant == "gatherreal":
         end = s[3] % 512 + 512
         for r in range(3):
@@ -151,8 +172,7 @@ def _chunk_values(variant: str, rows, band):
             for w in range(s[4] % 1 + 1):
                 b = lo + w * WINW
                 hit, off = _window(sid, b)
-                hit &= (crow == r) & (b + WINW <= end)
-                acc = acc + _selected(band32, hit, min(max(b, 0), BAND_W - WINW), off)
+                yield hit & (crow == r) & (b + WINW <= end), min(max(b, 0), BAND_W - WINW), off
     elif variant == "flatgather":
         for k in range(s[1] % 1 + 10):
             desc = int(r0[128 + k])
@@ -160,9 +180,9 @@ def _chunk_values(variant: str, rows, band):
             start = lo % 256
             hit, off = _window(sid, lo)
             hit &= (crow == (desc & 15)) & (start + WINW <= BAND_W)
-            acc = acc + _selected(band32, hit, min(max(start, 0), BAND_W - WINW), off)
+            yield hit, min(max(start, 0), BAND_W - WINW), off
     elif variant == "maskwalk":
-        m = [0x13, 0x0B, 0x26]  # `x % 1 | mask`: the data-dependent masks
+        m = list(MASKS)  # `x % 1 | mask`: the data-dependent masks
         los = [s[r] % 2 * WINW for r in range(3)]
         for _ in range(s[4] % 1 + 9):
             rc = 0 if m[0] else (1 if m[1] else 2)
@@ -170,11 +190,17 @@ def _chunk_values(variant: str, rows, band):
             pos = low.bit_length() - 1 if low else 31  # the probe's ctz
             b = los[rc] + pos * WINW
             hit, off = _window(sid, b)
-            acc = acc + _selected(band32, hit & (crow == rc), b % 256, off)
+            yield hit & (crow == rc), b % 256, off
             m[rc] &= m[rc] - 1
-    else:
-        raise ValueError(f"probe_chunk: unknown variant {variant!r}")
-    return float(acc[0, 0]), float(acc.double().sum())
+
+
+def gather_selections(variant: str, rows: torch.Tensor) -> tuple[int, int]:
+    """(rounds, pair rows selected summed over the rounds) of a gather
+    variant on `rows`: its function tests each of the chunk's 128 pair
+    rows once a round and adds a band value to each of a selected row's
+    32 elements."""
+    rounds = list(_gather_rounds(variant, rows[0].to(torch.int64)))
+    return len(rounds), sum(int(hit.sum()) for hit, _, _ in rounds)
 
 
 def probe_chunk_plain(variant: str, rows: torch.Tensor, band: torch.Tensor,
@@ -238,25 +264,119 @@ def probe_inputs(device):
     return rows, torch.ones((CHUNK, BAND_W), dtype=torch.bfloat16, device=device)
 
 
+def _dyadic_band(rng) -> np.ndarray:
+    """A dyadic band (k/8, |k| ≤ 16) with integer means in column 0,
+    positive x² coefficients in column 1 and opacities in (0, 1] in
+    column 3, so the gather sums are exact in f32 in any order; band[0, 0]
+    is 2, so pixel 0 lies near pair 0's mean (alpha[0, 0] is no
+    underflow)."""
+    band = rng.integers(-16, 17, (CHUNK, BAND_W)) / 8.0
+    band[:, 0] = rng.integers(0, 256, CHUNK)
+    band[0, 0] = 2.0
+    band[:, 1] = rng.integers(1, 17, CHUNK) / 8.0
+    band[:, 3] = rng.integers(1, 17, CHUNK) / 16.0
+    return band
+
+
+def _on(device, rows: np.ndarray, band: np.ndarray):
+    return (torch.from_numpy(rows.astype(np.int32)).to(device),
+            torch.from_numpy(band.astype(np.float32)).to(device, torch.bfloat16))
+
+
 def random_inputs(device):
     """Random inputs of the probe's shapes from a numpy seed: ids with
     negative values (jnp's floor division and modulo); a dyadic band
-    (k/8, |k| ≤ 16) with integer means in column 0, positive x²
-    coefficients in column 1 and opacities in (0, 1] in column 3, so the
-    gather sums are exact in f32 in any order; pair 0 (sid 40, class row
-    0) inside the windows the gather variants select and pair 7 on lane 0
-    of scatter3's, so the values the probe writes are not 0."""
+    (_dyadic_band); pair 0 (sid 40, class row 0) inside the windows the
+    gather variants select and pair 7 on lane 0 of scatter3's, so the
+    values the probe writes are not 0."""
     rng = np.random.default_rng(13)
     rows = rng.integers(-1200, 1200, (8, LANES)).astype(np.int32)
     rows[0, 128:138] = rng.integers(-24, 24, 10)  # flatgather's descriptors
     rows[0, 0], rows[0, 7], rows[0, 128] = 9 * 40, 1, 0
-    band = rng.integers(-16, 17, (CHUNK, BAND_W)) / 8.0
-    band[:, 0] = rng.integers(0, 256, CHUNK)
-    band[0, 0] = 2.0  # pixel 0 near pair 0's mean: alpha[0, 0] is no underflow
-    band[:, 1] = rng.integers(1, 17, CHUNK) / 8.0
-    band[:, 3] = rng.integers(1, 17, CHUNK) / 16.0
-    return (torch.from_numpy(rows).to(device),
-            torch.from_numpy(band.astype(np.float32)).to(device, torch.bfloat16))
+    return _on(device, rows, _dyadic_band(rng))
+
+
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+# lane 0 (a sid) of class row r's window in edge_inputs: low in sid's
+# range, near its top (238,609,294) and near its floor (−238,609,295),
+# where an id at offset 127 and one at −1 or 128 still fit in int32
+EDGE_WINDOWS = (128, 238_609_152, -238_609_280)
+# the window below EDGE_WINDOWS[2], which holds the sid of I32_MIN and
+# I32_MIN + 1 (offset 113; only offsets 113-127 hold ids in int32)
+FLOOR_WINDOW = -238_609_408
+
+
+def _id(sid: int, crow: int, k: int = 0) -> int:
+    """The id 9·sid + 3·crow + k (k < 3), which decodes to (sid, crow)."""
+    return 9 * sid + 3 * crow + k
+
+
+def _desc(lo: int, cls: int, top: bool = True) -> int:
+    """A flatgather descriptor for class row cls whose window starts at lo
+    (a multiple of 128, as int32); top sets bit 31, which the probe's
+    (desc >> 4)·128 wraps away."""
+    d = ((lo // WINW) % 2**25) << 4 | cls
+    return _wrap(d | 2**31) if top else d
+
+
+def edge_inputs(device) -> list:
+    """Two inputs (rows, band) at the edges of the probe's integer
+    arithmetic, from a numpy seed, which differ in the two ids that decide
+    most of the values the probe writes. The gathers write acc[0, 0],
+    pair 0's element, so one pair 0 cannot show every gather an edge:
+    gatherreal's and maskwalk's windows lie in [0, 896), where no extreme
+    id reaches.
+
+    Both: ids at the int32 extremes (floor_div of the most negative ids;
+    I32_MIN and I32_MIN + 1, whose class row 2 needs the wrap-around of
+    wmul(sid, −9)); each class row's window (EDGE_WINDOWS: low, near the
+    top and near the floor of sid's range) with pairs of that class row at
+    offsets 0 and 127, and just outside at −1 and 128, likewise for
+    gatherreal's and maskwalk's windows; rows[0, 3:5] the extremes
+    (gatherreal's end, the `x % 1` counts). flatgather's descriptors reach
+    bit 31 and wrap: (desc >> 4)·128 of a descriptor with bit 31 set, and
+    windows at −1024, near 2^31, near sid's floor and at FLOOR_WINDOW (class
+    row 2). maskwalk's masks cannot reach bit 31: the probe makes them
+    `x % 1 | mask`, constants whatever the input (MASKS); its input is the
+    window offsets `x % 2` of the extreme ids. The band is dyadic, as
+    random_inputs' (_dyadic_band).
+
+    The first: pair 0 at offset 127 of class row 0's low window, which
+    onehot3, gatherreal, maskwalk and flatgather (a descriptor with bit 31
+    set) all select, and scatter3's lane 0 hit; roll and decode read
+    I32_MAX and I32_MIN + 1 (rows[0, 56], rows[0, 61]: the shift rows[0, 0]
+    mod 64 is 56). The second: pair 0 is I32_MIN and pair 2 sits in its
+    window, FLOOR_WINDOW, so onehot3 and flatgather write the element of an
+    id whose class row needs the wrap-around, in the lowest window; roll
+    (shift 0) reads I32_MIN, decode sid(I32_MIN) + crow(I32_MIN + 1)."""
+    rng = np.random.default_rng(15)
+    rows = rng.integers(I32_MIN, I32_MAX + 1, (8, LANES), dtype=np.int64)
+    ids = [_id(EDGE_WINDOWS[0] + 127, 0, 1), _id(EDGE_WINDOWS[1], 1), _id(EDGE_WINDOWS[2], 2, 2),
+           I32_MIN, I32_MAX, I32_MIN + 1, I32_MAX - 1, -1, 0, I32_MIN + 9, I32_MAX - 9]
+    for r, b in enumerate(EDGE_WINDOWS):  # onehot3's and scatter3's windows
+        ids += [_id(b + o, r, o % 3) for o in (0, 127, -1, 128)]
+    for r in range(3):  # gatherreal's: from (x % 3)·128
+        lo = ids[r] % 3 * WINW
+        ids += [_id(lo + o, r, 2) for o in (0, 127, -1, 128)]
+    for r, mask in enumerate(MASKS):  # maskwalk's: from (x % 2)·128 + ctz·128
+        lo = ids[r] % 2 * WINW
+        for pos in (p for p in range(32) if mask >> p & 1):
+            ids += [_id(lo + pos * WINW, r), _id(lo + pos * WINW + 127, r, 2)]
+    ids += [_id(-1024, 0), _id(-1024 + 127, 0, 2)]  # flatgather's window at −1024
+    rows[0, :len(ids)] = ids
+    rows[0, len(ids):CHUNK] = rng.integers(-3000, 3000, CHUNK - len(ids))
+    sh = ids[0] % 64  # roll's and decode's shift
+    assert sh >= len(ids)
+    rows[0, sh], rows[0, sh + 5] = I32_MAX, I32_MIN + 1
+    rows[0, 128:138] = [_desc(EDGE_WINDOWS[0], 0), _desc(EDGE_WINDOWS[1], 1),
+                        _desc(EDGE_WINDOWS[2], 2), I32_MIN, I32_MAX, -1,
+                        _desc(EDGE_WINDOWS[0], 0, top=False), _desc(-1024, 0),
+                        _desc(FLOOR_WINDOW, 2), _desc(2**31 - WINW, 1)]
+    band = _dyadic_band(rng)
+    floor = rows.copy()
+    floor[0, 0], floor[0, 2] = I32_MIN, _id(FLOOR_WINDOW + 127, 2, 2)
+    assert rows.min() >= I32_MIN and rows.max() <= I32_MAX
+    return [_on(device, rows, band), _on(device, floor, band)]
 
 
 def main(argv=None) -> None:

@@ -5,7 +5,8 @@ CPU tensors run each probe's plain PyTorch version (its wrapper picks it
 by the tensor's device). Each is held to the probe's own Pallas kernel,
 built here with interpret=True and a small grid from the probe's kernel,
 _mk and specs, on the probe's inputs and on random ones from a numpy
-seed (negative ints included, for jnp's floor division and modulo).
+seed (negative ints included, for jnp's floor division and modulo), and
+J also on its edge inputs (int32 extremes, window offsets 0 and 127).
 Where the probe's output is undefined — I's `reduce` does not trace, H's
 staging ring and J's scatter3 scratch are never zeroed — the plain
 version is held to a numpy statement of what the probe computes."""
@@ -165,12 +166,19 @@ G_J = 4
 
 
 def _chunk_inputs(kind):
-    """(rows [8, 256] int32, band [128, 512] float32 holding bf16 values):
-    the probe's own, or probe_chunk.random_inputs (negative ids, a dyadic
+    """[(rows [8, 256] int32, band [128, 512] float32 holding bf16 values)]:
+    the probe's own, probe_chunk.random_inputs (negative ids, a dyadic
     band whose gather sums are exact in f32 in any order, values the
-    probe writes that are not 0)."""
-    rows, band = (tchunk.probe_inputs if kind == "probe" else tchunk.random_inputs)("cpu")
-    return rows.numpy(), band.float().numpy()
+    probe writes that are not 0) or probe_chunk.edge_inputs' two (ids at
+    the int32 extremes and at offsets 0 and 127 of each class row's
+    window, flatgather descriptors with bit 31 set, the same kind of
+    band; pair 0, whose elements the gathers write, in a low window in
+    the first and the id I32_MIN in the lowest window in the second)."""
+    if kind == "edge":
+        made = tchunk.edge_inputs("cpu")
+    else:
+        made = [{"probe": tchunk.probe_inputs, "random": tchunk.random_inputs}[kind]("cpu")]
+    return [(rows.numpy(), band.float().numpy()) for rows, band in made]
 
 
 def _chunk_reference(variant, rows, band):
@@ -198,27 +206,27 @@ def _scatter3_intent(rows):
     return 2.0 * np.sum((crow == 0) & (sid == base))
 
 
-@pytest.mark.parametrize("kind", ["probe", "random"])
+@pytest.mark.parametrize("kind", ["probe", "random", "edge"])
 @pytest.mark.parametrize("variant", tchunk.VARIANTS)
 def test_chunk_matches_probe(variant, kind):
-    rows, band = _chunk_inputs(kind)
-    out = tchunk.probe_chunk(variant, torch.from_numpy(rows),
-                             torch.from_numpy(band).to(torch.bfloat16), g=G_J)
-    assert out.shape == (G_J, 2) and out.dtype == torch.float32
-    if variant == "base":
-        np.testing.assert_array_equal(out.numpy(), np.repeat(np.arange(G_J), 2)
-                                      .reshape(G_J, 2).astype(np.float32))
-    else:  # every block computes the same chunk
-        assert torch.equal(out, out[:1].expand(G_J, 2))
-    v = float(out[-1, 0])
-    if variant == "scatter3":  # the probe reads scratch it never zeroed (NaN)
-        assert v == _scatter3_intent(rows)
-        return
-    want = _chunk_reference(variant, rows, band)
-    if variant in tchunk.FLOAT_SUMS:
-        assert abs(v - want) <= tchunk.VALUE_RTOL * abs(want), (v, want)
-    else:
-        assert v == want, (v, want)
+    for rows, band in _chunk_inputs(kind):
+        out = tchunk.probe_chunk(variant, torch.from_numpy(rows),
+                                 torch.from_numpy(band).to(torch.bfloat16), g=G_J)
+        assert out.shape == (G_J, 2) and out.dtype == torch.float32
+        if variant == "base":
+            np.testing.assert_array_equal(out.numpy(), np.repeat(np.arange(G_J), 2)
+                                          .reshape(G_J, 2).astype(np.float32))
+        else:  # every block computes the same chunk
+            assert torch.equal(out, out[:1].expand(G_J, 2))
+        v = float(out[-1, 0])
+        if variant == "scatter3":  # the probe reads scratch it never zeroed (NaN)
+            assert v == _scatter3_intent(rows)
+            continue
+        want = _chunk_reference(variant, rows, band)
+        if variant in tchunk.FLOAT_SUMS:
+            assert abs(v - want) <= tchunk.VALUE_RTOL * abs(want), (v, want)
+        else:
+            assert v == want, (v, want)
 
 
 # --- H: probe_compact --------------------------------------------------------

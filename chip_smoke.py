@@ -7,7 +7,8 @@ and check them.
 Phases (any failure exits non-zero; there is no CPU path):
   1. device  — require CUDA; print the card's name and power limit;
   2. build   — compile the ten CUDA kernels from gsjax_torch/csrc: the
-               path's library (A-F) and the probes' (G-J), side by side,
+               path's library (A-F) and the probes' (G-J and the empty
+               launch that measures their launch floor), side by side,
                every nvcc at once, each library's time printed; beside
                them the forward's `baseline` variant (tools/
                blend_fwd_variants: C and E with one pixel per thread, no
@@ -107,12 +108,34 @@ Phases (any failure exits non-zero; there is no CPU path):
                nil by design, is flagged as suspect) and H's one boolean
                index. The counters, zeroed before each probe's comparison
                and before its timed run, show its kernel launched once per
-               wrapper call and no other kernel.
+               wrapper call and no other kernel. First, the empty launch
+               (csrc/probe_empty.cu) is timed at each probe's launch
+               shapes and at the least launch (1 × 32): a probe's bound is
+               the sum over its launches of the larger of its roofline
+               (bytes, operations) and that launch's floor, printed beside
+               the floor, the roofline, the floor's part of the bound
+               (its limit reads "launch" from a quarter up) and the bound
+               and share against the least launch's floor in place of the
+               probe's own grid's;
+ 12. lazy    — gsjax_torch.LazyTrainer on the bonsai 1080p orbit, perturb(g)
+               toward g's renders as in phase 10: a resort at views 0-3 (A and
+               B once each, C and D never, overflow 0), the lazy render
+               after the first against the exact stream render (max |Δ| ≤
+               2e-5), 16 lazy steps a view, each under CUDA's sync debug
+               mode set to error (no host sync) launching C once and D's
+               blend and class sum once, no other kernel; the first step's
+               loss the exact path's (phase 10) within 1e-5 and bench.py's
+               within 5%, view 0's loss falling, the home-order parameters
+               finite, sync() changing the master; median ms per lazy
+               step, ms per resort and its parts (fold, plan, extract),
+               peak device memory.
 Prints the kernels' JSON line (A-J and D's class sum, each with its
 time, its plain version's, its bound and its launches: A-F in their
 path's training run,
 G-J in their probe's timed run in phase 11; a probe's times and bound
-are summed over its variants or class counts, one launch of each), then
+are summed over its variants or class counts, one launch of each; its
+bound_by is its roofline's limit, and beside it roofline_ms, floor_ms,
+floor_part, limit and least_floor_bound_ms), then
 the card's name and power limit, then the result line {"ok": true,
 "device": {...}} last.
 """
@@ -138,6 +161,7 @@ BLACK_LOSS0 = 0.41342  # mean(img²) of orbit view 0 in the reference
 TRAIN_LOSS0 = 0.00031  # bench.py's loss0 for perturb(g) at view 0 (BENCH_r05.json)
 SERVE_VIEWS = 4
 TRAIN_VIEWS, FIXED_STEPS = 4, 8
+LAZY_VIEWS, LAZY_STEPS = 4, 16  # phase 12: a resort at each view, bench.py's steps per view
 FLAT_FIXED_STEPS = 4
 # the kernels each path launches (LAUNCHES keys) serving, and besides
 # those when training
@@ -253,13 +277,39 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the least time for the work on the card, the
+def bound(n_bytes: float, n_ops: float, floor_ms: float = 0.0):
+    """(bound_ms, limit): the least time for the work on the card, the
     larger of bytes over the memory rate and operations over the fp32
-    rate."""
+    rate, and of floor_ms, the empty launch's time at the work's launch
+    shape (limit "launch" where that floor wins)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    if floor_ms > max(t_bytes, t_ops):
+        return floor_ms, "launch"
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def probe_bound(launches, least_ms: float) -> dict:
+    """A probe's bound over its launches [(bytes, operations, floor_ms)]:
+    bound_ms, the sum of each launch's bound with its own floor;
+    roofline_ms and bound_by, the same sum without the floors and the
+    limit (bytes or operations) that holds the most of it; floor_ms, the
+    floors' sum; floor_part, the share of bound_ms held by the launches
+    whose floor wins; limit, "launch" where that share is a quarter or
+    more, else bound_by; least_floor_bound_ms, the bound with the least
+    launch's floor least_ms in place of each launch's own."""
+    parts = [bound(*launch) for launch in launches]
+    roof = [bound(b, o) for b, o, _ in launches]
+    by = {}
+    for t, limit in roof:
+        by[limit] = by.get(limit, 0.0) + t
+    bound_ms = sum(t for t, _ in parts)
+    floor_part = sum(t for t, limit in parts if limit == "launch") / bound_ms
+    bound_by = max(by, key=by.get)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, roofline_ms=sum(by.values()),
+                floor_ms=sum(f for _, _, f in launches), floor_part=floor_part,
+                limit="launch" if floor_part >= 0.25 else bound_by,
+                least_floor_bound_ms=sum(bound(b, o, least_ms)[0] for b, o, _ in launches))
 
 
 def needed_ops(work, ops_included: int, counted: str = "pair_pixels_eligible") -> int:
@@ -503,6 +553,148 @@ def train_phase(g, g_train, cams, cfg, order, card) -> dict:
                 split_ms=split_ms, peak_gib=peak_gb)
 
 
+def nonzero(launches: dict) -> dict:
+    return {k: c for k, c in launches.items() if c}
+
+
+def lazy_phase(g, cams, cfg, dev, card, exact) -> dict:
+    """12. Lazy frame plans through gsjax_torch.LazyTrainer on the bonsai
+    1080p orbit: perturb(g) trained toward g's renders of views
+    0-(LAZY_VIEWS-1), a resort at each view, then LAZY_STEPS lazy steps.
+    The resort at view 0 launches A and B once each and C and D never,
+    with every overflow counter 0; a lazy render right after it is held
+    to the exact stream render of the same parameters (max |Δ| ≤ 2e-5,
+    tests/test_lazy.py:64-78's bound); the first lazy step's loss to the
+    exact path's first loss at view 0 (`exact`: phase 10's run) within
+    1e-5 relative and to bench.py's loss0 within 5%. Each lazy step runs
+    with CUDA's sync debug mode set to error (a step that waits for the
+    card fails) and launches C once and D (its blend and class sum) once,
+    no other kernel (the counters, zeroed after each resort, read after
+    the view's steps). The loss at view 0 falls, the home-order parameters
+    stay finite, sync() changes the master. Returns the run's numbers:
+    the ms of each lazy step (synchronised), of each resort and its parts
+    (fold, plan, extract), peak device memory."""
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import kernels
+    from gsjax_torch.bench.run import perturb
+    from gsjax_torch.render.composite import att_table
+    from gsjax_torch.render.homesort import build_home_layout
+    from gsjax_torch.render.lazy import lazy_cols
+    from gsjax_torch.render.project import project
+
+    cams_l = [c.to(dev) for c in cams[:LAZY_VIEWS]]
+    with torch.no_grad():
+        targets = [gt.render(g, c, cfg) for c in cams_l]
+    g_train = perturb(g)
+    tr = gt.LazyTrainer(g_train, cfg, torch.optim.Adam(g_train.parameters(), lr=1e-3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resorts = []
+
+    def resort(cam):
+        parts, t = {}, [time.perf_counter()]
+
+        def lap(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            parts[name] = (now - t[0]) * 1e3
+            t[0] = now
+
+        kernels.reset_launches()
+        plan = tr.resort(cam, lap)
+        resorts.append(parts)
+        return plan, dict(kernels.LAUNCHES)
+
+    plan, launched = resort(cams_l[0])
+    want = {k: int(k in ("repeat", "expand")) for k in launched}
+    check(launched == want, f"lazy: the resort launched {launched} (want A and B once)")
+    ovf = {k: int(v) for k, v in plan.ovf.items()}
+    check(all(v == 0 for k, v in ovf.items() if k != "n_pairs"),
+          f"lazy: the resort at view 0 overflowed {ovf}")
+    with torch.no_grad():
+        img_l = gt.lazy_render(tr.hp, cams_l[0], cfg, plan)
+        img_e = gt.render(g_train, cams_l[0], cfg)
+        d = (img_l - img_e).abs()
+        d_max = float(d.max())
+        d_p999 = float(torch.quantile(d.flatten()[:: max(1, d.numel() // 8_000_000)], 0.999))
+        if d_max > 2e-5:  # find the rows: the lazy attributes against the exact home table
+            ph, _ = build_home_layout(project(g_train, cams_l[0], cfg), cams_l[0], cfg)
+            rows = torch.nonzero((lazy_cols(tr.hp, cams_l[0], cfg) != att_table(ph))
+                                 .any(dim=1) & ph.valid).squeeze(1)
+            print(f"# lazy: render differs from the exact one: p99.9 {d_p999:.3e} max "
+                  f"{d_max:.3e}; {rows.numel()} live home rows whose attributes differ "
+                  f"from the exact path's (first: {rows[:8].tolist()})")
+        check(d_max <= 2e-5, f"lazy: the render after the resort differs from the exact "
+              f"stream render by {d_max} > 2e-5 (p99.9 {d_p999})")
+    print(f"# lazy: resort at view 0 on {card}: {plan.nh} home rows, "
+          f"{int(plan.ovf['n_pairs'])} pairs, launches {nonzero(launched)}, overflow {ovf}; lazy "
+          f"render against the exact stream render max |Δ| {d_max:.3e}, p99.9 "
+          f"{d_p999:.3e}{', bit-equal' if torch.equal(img_l, img_e) else ''}")
+    del img_l, img_e, d
+
+    master0 = {n: t.detach().clone() for n, t in g_train.named_parameters()}
+    step_ms, losses = [], []
+    for v, cam in enumerate(cams_l):
+        if v:
+            plan, launched = resort(cam)
+            ovf = {k: int(x) for k, x in plan.ovf.items() if k != "n_pairs"}
+            check(launched == want and not any(ovf.values()),
+                  f"lazy: the resort at view {v} launched {launched}, overflow {ovf}")
+        kernels.reset_launches()
+        losses.append([])
+        for _ in range(LAZY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loss = tr.step(targets[v], cam)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses[-1].append(float(loss))
+        launched = dict(kernels.LAUNCHES)
+        want_step = {k: LAZY_STEPS * int(k in ("stream_fwd", "stream_bwd", "stream_class_sum"))
+                     for k in launched}
+        check(launched == want_step, f"lazy: {LAZY_STEPS} steps at view {v} launched "
+              f"{launched} (want C and D's two kernels once a step, nothing else)")
+    for n_, t in tr.hp.named_parameters():
+        check(bool(torch.isfinite(t).all()), f"lazy: home-order {n_} not finite")
+    l0 = losses[0]
+    rel_exact = abs(l0[0] - exact["losses"][0]) / exact["losses"][0]
+    rel_bench = abs(l0[0] - TRAIN_LOSS0) / TRAIN_LOSS0
+    print(f"# lazy: views 0-{LAZY_VIEWS - 1}, a resort and {LAZY_STEPS} steps each, "
+          f"launches per view {nonzero(launched)}, no host sync in a step; view 0's losses "
+          f"{l0[0]:.7f} -> {l0[-1]:.7f} (the exact path's first loss {exact['losses'][0]:.7f}, "
+          f"rel diff {rel_exact:.2e}; bench.py's {TRAIN_LOSS0}, rel diff {rel_bench:.2e}); "
+          f"last loss of each view {[f'{x[-1]:.7f}' for x in losses]}")
+    check(rel_exact <= 1e-5, f"lazy: the first step's loss {l0[0]} is not the exact "
+          f"path's {exact['losses'][0]} within 1e-5")
+    check(rel_bench <= 0.05, f"lazy: the first step's loss {l0[0]} not within 5% of "
+          f"{TRAIN_LOSS0}")
+    check(l0[-1] < l0[0], f"lazy: view 0's loss did not fall ({l0[0]} -> {l0[-1]})")
+    t0 = time.perf_counter()
+    tr.sync()
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    moved = [n_ for n_, t in g_train.named_parameters() if not torch.equal(t, master0[n_])]
+    check(len(moved) == len(master0), f"lazy: sync() changed only {moved}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    med = lambda k, rs=resorts[1:]: round(statistics.median(r[k] for r in rs), 3)
+    print(f"# lazy timing on {card}: median {statistics.median(step_ms):.3f} ms per lazy "
+          f"step over {len(step_ms)} (synchronised; all {[round(x, 2) for x in step_ms]}); "
+          f"the exact step (phase 10) median {statistics.median(exact['step_ms']):.3f}; "
+          f"resort at views 1-{LAZY_VIEWS - 1} median "
+          f"{med('fold') + med('plan') + med('extract'):.3f} ms (fold {med('fold')}, plan "
+          f"{med('plan')}, extract {med('extract')}; each "
+          f"{[{k: round(x, 2) for k, x in r.items()} for r in resorts]}); the last sync "
+          f"(fold) {sync_ms:.3f} ms; peak device memory {peak_gib:.2f} GiB")
+    return dict(step_ms=step_ms, losses=losses, resort_ms=resorts, sync_ms=sync_ms,
+                peak_gib=peak_gib)
+
+
 class Counted:
     """A probe's wrapper that counts its calls since start(), which zeroes
     the launch counters; check() holds the kernel's counter to those calls
@@ -552,11 +744,32 @@ def probes_phase(dev, card) -> tuple[list, dict]:
     from gsjax_torch.tools import probe_compact as ph
     from gsjax_torch.tools import probe_mosaic as pg
     from gsjax_torch.tools import probe_scalars as pi
+    from gsjax_torch.tools import probe_empty
     from gsjax_torch.tools import time_ms as device_ms
     from gsjax_torch.tools import time_over_base_ms
 
     results, detail = [], {}
     rng = np.random.default_rng(21)
+
+    # the empty launch at each probe's launch shapes (grid, block, dynamic
+    # shared memory): G one block of 1024 threads with its 64 KB stage; I
+    # and J their grids of 128-thread blocks (J two pixels a thread); H
+    # its count and write passes' blocks of 1024 lanes and its one-block
+    # scan; and the least launch, one warp
+    nh_h = 2_400_000 // ph.R * ph.R
+    shapes = {"G": (1, 1024, 4 * pg.ROWS * pg.CAP), "I": (pi.G, pi.CHUNK, 0),
+              "J": (pj.G, pj.N_PX // 2, 0), "H": (-(-nh_h // ph.BLOCK_LANES), ph.BLOCK_LANES, 0),
+              "H scan": (1, ph.BLOCK_LANES, 0), "least": (1, 32, 0)}
+    empty = Counted("probe_empty", probe_empty)
+    flag = torch.empty(1, dtype=torch.int32, device=dev)
+    floor = {k: device_ms(lambda: empty(flag, *shape), dev, 50) for k, shape in shapes.items()}
+    empty.check()
+    check(int(flag[0]) == 0, "the empty launch did not write its flag")
+    detail["launch_floor_ms"] = floor
+    print(f"# launch floors on {card} (the empty launch, device ms per launch in a CUDA "
+          "graph; grid x block + dynamic shared memory): "
+          + ", ".join(f"{k} {g}x{b}{f' + {m // 1024} KB' if m else ''} {floor[k]:.5f}"
+                      for k, (g, b, m) in shapes.items()))
 
     # G: bit-equal on a random input with negative ints and on the probe's
     # (last: its s is printed)
@@ -570,12 +783,10 @@ def probes_phase(dev, card) -> tuple[list, dict]:
     mosaic.check()
     mosaic.start()
     ms_g = device_ms(lambda: mosaic(x), dev, 100)
-    g_bound = bound(nbytes(x, o, s), OPS_MOSAIC)
-    results.append(dict(
-        name="probe_mosaic", route="cuda", source="gsjax_torch/csrc/probe_mosaic.cu",
-        replaces="tools/probe_mosaic.py:25", launches=mosaic.check(), max_abs_err=0.0,
-        ms=ms_g, plain_ms=cuda_ms(lambda: pg.probe_mosaic_plain(x), 5),
-        bound_ms=g_bound[0], bound_by=g_bound[1], library_ms=None))
+    results.append(probe_line(
+        "probe_mosaic", "tools/probe_mosaic.py:25", mosaic.check(), 0.0, ms_g,
+        cuda_ms(lambda: pg.probe_mosaic_plain(x), 5), None,
+        [(nbytes(x, o, s), OPS_MOSAIC, floor["G"])], floor["least"], card))
     print(f"# G probe_mosaic: o and s bit-equal on the probe's input and a random "
           f"one; s = {int(s[0])}; {ms_g:.4f} ms per launch")
 
@@ -592,20 +803,17 @@ def probes_phase(dev, card) -> tuple[list, dict]:
                   f"probe I ({v}) differs from its plain version")
     scalars.check()
     scalars.start()
-    ms_i, plain_i, over_i, n_bytes, n_ops = {}, {}, {}, 0, 0
+    ms_i, plain_i, over_i, launches_i = {}, {}, {}, []
     for v in pi.VARIANTS:
         ms_i[v], base_ms = time_over_base_ms(lambda: scalars(v, stab, rows),
                                              lambda: scalars("base", stab, rows), dev, 50)
         over_i[v] = (ms_i[v] - base_ms) / g_i * 1e6
         plain_i[v] = cuda_ms(lambda: pi.probe_scalars_plain(v, stab, rows), 5)
-        n_bytes += (BYTES_PER_BLOCK_I[v] + 4) * g_i
-        n_ops += OPS_PER_BLOCK_I[v] * g_i
-    i_bound = bound(n_bytes, n_ops)
-    results.append(dict(
-        name="probe_scalars", route="cuda", source="gsjax_torch/csrc/probe_scalars.cu",
-        replaces="tools/probe_scalars.py:33", launches=scalars.check(), max_abs_err=0.0,
-        ms=sum(ms_i.values()), plain_ms=sum(plain_i.values()), bound_ms=i_bound[0],
-        bound_by=i_bound[1], library_ms=None))
+        launches_i.append(((BYTES_PER_BLOCK_I[v] + 4) * g_i, OPS_PER_BLOCK_I[v] * g_i,
+                           floor["I"]))
+    results.append(probe_line(
+        "probe_scalars", "tools/probe_scalars.py:33", scalars.check(), 0.0,
+        sum(ms_i.values()), sum(plain_i.values()), None, launches_i, floor["least"], card))
     detail["probe_scalars"] = dict(ms=ms_i, plain_ms=plain_i, ns_per_block_over_base=over_i)
     print(f"# I probe_scalars on {card}: out bit-equal (4 variants, probe and random "
           f"inputs); G = {g_i} blocks, ms {_fmt(ms_i)}; ns per block over base (timed "
@@ -628,22 +836,18 @@ def probes_phase(dev, card) -> tuple[list, dict]:
             err_j = max(err_j, float((k[-1] - p[-1]).abs().max()))
     chunk.check()
     chunk.start()
-    ms_j, plain_j, over_j, base_j, bound_j, n_bytes, n_ops = {}, {}, {}, {}, {}, 0, 0
+    ms_j, plain_j, over_j, base_j, bound_j, launches_j = {}, {}, {}, {}, {}, []
     for v in pj.VARIANTS:
         ms_j[v], base_j[v] = time_over_base_ms(lambda: chunk(v, *inputs[0]),
                                                lambda: chunk("base", *inputs[0]), dev, 50)
         over_j[v] = (ms_j[v] - base_j[v]) / g_j * 1e6
         plain_j[v] = cuda_ms(lambda: pj.probe_chunk_plain(v, *inputs[0]), 3)
-        n_bytes += BYTES_READ_J.get(v, 0) + 8 * g_j
         ops = ops_per_block_j(v, inputs[0][0]) * g_j
-        n_ops += ops
+        launches_j.append((BYTES_READ_J.get(v, 0) + 8 * g_j, ops, floor["J"]))
         bound_j[v] = bound(BYTES_READ_J.get(v, 0) + 8 * g_j, ops)[0] / g_j * 1e6
-    j_bound = bound(n_bytes, n_ops)
-    results.append(dict(
-        name="probe_chunk", route="cuda", source="gsjax_torch/csrc/probe_chunk.cu",
-        replaces="tools/probe_chunk.py:35", launches=chunk.check(), max_abs_err=err_j,
-        ms=sum(ms_j.values()), plain_ms=sum(plain_j.values()), bound_ms=j_bound[0],
-        bound_by=j_bound[1], library_ms=None))
+    results.append(probe_line(
+        "probe_chunk", "tools/probe_chunk.py:35", chunk.check(), err_j,
+        sum(ms_j.values()), sum(plain_j.values()), None, launches_j, floor["least"], card))
     suspect = [v for v in pj.VARIANTS[1:] if v not in J_NO_WORK and over_j[v] <= 0]
     base_ms = statistics.mean(base_j.values())
     detail["probe_chunk"] = dict(ms=ms_j, plain_ms=plain_j, ns_per_block_over_base=over_j,
@@ -679,19 +883,20 @@ def probes_phase(dev, card) -> tuple[list, dict]:
         counts[c] = n
     compact.check()
     compact.start()
-    ms_h, plain_h, lib_h, n_bytes, n_ops = {}, {}, {}, 0, 0
+    ms_h, plain_h, lib_h, launches_h = {}, {}, {}, []
     for c in ph.CLASSES:
         ms_h[c] = device_ms(lambda: compact(mask, vals, c), dev, 10)
         plain_h[c] = cuda_ms(lambda: ph.probe_compact_plain(mask, vals, c), 3)
         lib_h[c] = cuda_ms(lambda: ph.compact_index(mask, vals, c), 3)
-        n_bytes += 36 * nh + 32 * counts[c] + 4
-        n_ops += OPS_PER_LANE_CLASS_H * nh * c
-    h_bound = bound(n_bytes, n_ops)
-    results.append(dict(
-        name="probe_compact", route="cuda", source="gsjax_torch/csrc/probe_compact.cu",
-        replaces="tools/probe_compact.py:59", launches=compact.check(), max_abs_err=0.0,
-        ms=sum(ms_h.values()), plain_ms=sum(plain_h.values()), bound_ms=h_bound[0],
-        bound_by=h_bound[1], library_ms=sum(lib_h.values())))
+        # a call's three launches: the count pass reads the mask, the scan
+        # writes the count, the write pass reads the values and writes the
+        # entries
+        launches_h += [(4 * nh, 0, floor["H"]), (4, 0, floor["H scan"]),
+                       (32 * nh + 32 * counts[c], OPS_PER_LANE_CLASS_H * nh * c, floor["H"])]
+    results.append(probe_line(
+        "probe_compact", "tools/probe_compact.py:59", compact.check(), 0.0,
+        sum(ms_h.values()), sum(plain_h.values()), sum(lib_h.values()), launches_h,
+        floor["least"], card))
     detail["probe_compact"] = dict(nh=nh, counts=counts, ms=ms_h, plain_ms=plain_h,
                                    library_ms=lib_h)
     print(f"# H probe_compact on {card}: stream and count bit-equal (classes 1, 3, 9; "
@@ -701,6 +906,26 @@ def probes_phase(dev, card) -> tuple[list, dict]:
           f"{_fmt(plain_h)}; one boolean index {_fmt(lib_h)}")
     detail["launches"] = {r["name"]: r["launches"] for r in results}
     return results, detail
+
+
+def probe_line(name: str, replaces: str, launches: int, err: float, ms: float,
+               plain_ms: float, library_ms, probe_launches, least_ms: float,
+               card: str) -> dict:
+    """A probe's kernels-line entry: its bound summed over its launches
+    [(bytes, operations, floor_ms)] with each launch's floor (probe_bound),
+    the roofline part beside it; prints the floor, the roofline, the bound
+    and the share of it the probe's time reaches, against its own grid's
+    floor and against the least launch's (least_ms a launch)."""
+    b = probe_bound(probe_launches, least_ms)
+    print(f"# {name} on {card}: {ms:.5f} ms over {len(probe_launches)} launches; launch "
+          f"floor {b['floor_ms']:.5f} ms, roofline {b['roofline_ms']:.5f} ms ({b['bound_by']}),"
+          f" bound {b['bound_ms']:.5f} ms ({b['limit']}; the floor holds "
+          f"{b['floor_part']:.3f} of it): {b['bound_ms'] / ms:.3f} of it; with the least "
+          f"launch's floor ({least_ms:.5f} ms) in place of its own grid's: bound "
+          f"{b['least_floor_bound_ms']:.5f} ms, {b['least_floor_bound_ms'] / ms:.3f} of it")
+    return dict(name=name, route="cuda", source=f"gsjax_torch/csrc/{name}.cu",
+                replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, **b)
 
 
 def _fmt(d: dict, digits: int = 4) -> dict:
@@ -1318,6 +1543,11 @@ def main() -> int:
     print(f"# probes: {time.perf_counter() - t0:.2f} s; launches in their runs "
           f"{probe_detail['launches']}")
 
+    # 12. lazy frame plans: a resort a view, kernels C and D a step ----------
+    t0 = time.perf_counter()
+    lazy = lazy_phase(g, cams, cfg, dev, card, train["stream"])
+    print(f"# lazy: {time.perf_counter() - t0:.2f} s")
+
     # A-F: kernel → the training run its launches are read from (A, B:
     # both); the probes G-J: their runs in phase 11
     key = {"repeat_fat_parents": ("stream", "repeat"), "expand_pairs": ("stream", "expand"),
@@ -1338,12 +1568,12 @@ def main() -> int:
     for r in results:
         print(f"# kernel {r['name']} on {card}: {r['ms']:.3f} ms vs plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']}), max |err| {r['max_abs_err']:.3e}, "
+              f"({r.get('limit', r['bound_by'])}), max |err| {r['max_abs_err']:.3e}, "
               f"{r['launches']} launches in {r.pop('run')}")
     with open(os.path.join(OUT_DIR, "result.json"), "w") as fh:
         json.dump(dict(card=card, kind=kind, kernels=results, frame_ms=frame_ms,
                        stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train,
-                       probes=probe_detail),
+                       probes=probe_detail, lazy=lazy),
                   fh, indent=1)
 
     print(json.dumps({"kernels": results}))

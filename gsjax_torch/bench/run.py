@@ -1,21 +1,31 @@
-"""The port's training benchmark: bench.py's per-frame-exact modes on the
-card, through gsjax_torch.
+"""The port's training benchmark: bench.py's modes on the card, through
+gsjax_torch.
 
-    python -m gsjax_torch.bench.run --mode orbit-exact   # 30-view 1080p orbit
+    python -m gsjax_torch.bench.run                      # --mode orbit: lazy, 30 views
+    python -m gsjax_torch.bench.run --mode orbit-exact   # per frame exact, 30 views
     python -m gsjax_torch.bench.run --mode fixed         # fixed camera, black target
+    python -m gsjax_torch.bench.run --mode fixed-lazy --frames 64 --resort-every 16
     python -m gsjax_torch.bench.run --backend pallas --mode orbit-exact  # flat kernels
-    python -m gsjax_torch.bench.run --quick --mode fixed --frames 2 --device cpu
+    python -m gsjax_torch.bench.run --quick --mode orbit --views 2 --device cpu
 
-orbit-exact: the clean bonsai-scale scene renders each orbit view's
-target; a perturbed copy (`perturb`) then takes one fwd + bwd + Adam step
-at every view, in order. fixed: `--frames` steps at the bench camera
-toward a black target. Every view's overflow counters must read 0, or
-the run fails. --backend picks the blend, as bench.py's flag does:
-stream (kernels C, D; the default) or pallas (the flat slot-stream
-kernels E, F). The lazy modes (orbit, fixed-lazy) wait for the lazy
-frame plans; autotune is not ported, so the copy budgets come from
---fat-cap / --fat-live-cap, by default the ones the reference's autotune
-measured for this orbit.
+orbit (the default, bench.py's headline): the clean bonsai-scale scene
+renders each orbit view's target; a perturbed copy (`perturb`) then
+trains through lazy frame plans (render/lazy.py): at each view a resort
+(fold back, frame plan, extract), then --steps-per-view lazy steps that
+reuse its layout with fresh attributes (kernels C and D; the resort runs
+A and B). orbit-exact: one per-frame-exact fwd + bwd + Adam step at every
+view, in order. fixed: --frames exact steps at the bench camera toward a
+black target. fixed-lazy: --frames lazy steps at the bench camera toward
+its render, a resort every --resort-every steps. Every view's (every
+resort's) overflow counters must read 0, or the run fails. --backend
+picks the blend of the exact modes, as bench.py's flag does: stream
+(kernels C, D; the default) or pallas (the flat slot-stream kernels E,
+F); the lazy modes need stream. --quick shrinks the scene (50,000 splats
+at 640×480 unless --n / --width / --height say otherwise) and keeps the
+mode (bench.py's --quick runs the fixed mode whatever --mode says; here
+every mode has a small run, for the CPU tests). Autotune is not ported,
+so the copy budgets come from --fat-cap / --fat-live-cap, by default the
+ones the reference's autotune measured for this orbit.
 
 Prints one JSON line, bench.py's {"metric": "1080p_fwd_bwd_ms_per_frame",
 "value": ms, "unit": "ms", "mode": ..., "loss0": ..., ...} plus "device"
@@ -37,6 +47,7 @@ import torch
 from gsjax_torch.camera.orbit import OrbitCamera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.core.gaussians import Gaussians
+from gsjax_torch.render.lazy import LazyTrainer
 from gsjax_torch.render.pipeline import render
 from gsjax_torch.bench.synth import bench_camera, bonsai_like
 from gsjax_torch.train import make_step_fn
@@ -88,12 +99,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def profile_steps(step, n: int, dev: torch.device, top: int = 12) -> str:
-    """Trace `n` calls of step() with torch.profiler: per step, the wall
-    time, the device time (the sum of the device-side events: kernels,
-    copies, sets), the device's idle share, and the largest kernels and
-    aten ops by device time. The tracing itself slows the host, so the
-    wall time and idle share read high against an untraced run."""
+def profile_steps(step, n: int, dev: torch.device, top: int = 12, unit: str = "step") -> str:
+    """Trace `n` calls of step() with torch.profiler: per call (a `unit`),
+    the wall time, the device time (the sum of the device-side events:
+    kernels, copies, sets; not the ranges a record_function marks on the
+    device's timeline, such as Optimizer.step, which hold kernels counted
+    already: the sum with them, this runner's earlier count, is printed
+    beside), the device's idle share, and the largest kernels and aten ops
+    by device time. The tracing itself slows the host, so the wall time and idle
+    share read high against an untraced run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -107,31 +121,39 @@ def profile_steps(step, n: int, dev: torch.device, top: int = 12) -> str:
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3 / n
     ka = prof.key_averages()
-    own = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key) for e in ka
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                 reverse=True)
+    dev_events = [e for e in ka
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    own = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key) for e in dev_events
+                  if not getattr(e, "is_user_annotation", False)), reverse=True)
+    with_ranges = sum(e.self_device_time_total for e in dev_events) / 1e3 / n
     ops = sorted(((e.device_time_total / 1e3 / n, e.count / n, e.key) for e in ka
                   if e.key.startswith("aten::") and e.device_time_total > 0), reverse=True)
     busy = sum(t for t, _, _ in own)
-    lines = [f"# profile of {n} steps: wall {wall:.3f} ms/step, device busy "
-             f"{busy:.3f} ms/step, idle share {1 - busy / wall:.3f}"]
-    lines += [f"#   kernel {t:8.3f} ms/step  x{c:g}  {k[:100]}" for t, c, k in own[:top]]
-    lines += [f"#   op     {t:8.3f} ms/step  x{c:g}  {k}" for t, c, k in ops[:top]]
+    lines = [f"# profile of {n} {unit}s: wall {wall:.3f} ms/{unit}, device busy "
+             f"{busy:.3f} ms/{unit}, idle share {1 - busy / wall:.3f} (with the "
+             f"record_function ranges counted too: busy {with_ranges:.3f})"]
+    lines += [f"#   kernel {t:8.3f} ms/{unit}  x{c:g}  {k[:100]}" for t, c, k in own[:top]]
+    lines += [f"#   op     {t:8.3f} ms/{unit}  x{c:g}  {k}" for t, c, k in ops[:top]]
     return "\n".join(lines)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="small scene smoke run; always the fixed mode")
+                    help="small scene smoke run (the mode stays)")
     ap.add_argument("--n", type=int, default=None, help="splat count")
-    ap.add_argument("--mode", default="orbit-exact",
-                    choices=["orbit-exact", "fixed", "orbit", "fixed-lazy"])
+    ap.add_argument("--mode", default="orbit",
+                    choices=["orbit", "orbit-exact", "fixed", "fixed-lazy"])
     ap.add_argument("--backend", default="stream", choices=["stream", "pallas"],
                     help="the blend: stream (kernels C, D) or pallas (the flat "
                     "slot-stream kernels E, F)")
     ap.add_argument("--views", type=int, default=30)
-    ap.add_argument("--frames", type=int, default=10, help="fixed mode: steps")
+    ap.add_argument("--steps-per-view", type=int, default=16,
+                    help="orbit: lazy steps per view (a resort at each view)")
+    ap.add_argument("--frames", type=int, default=10,
+                    help="fixed and fixed-lazy modes: steps")
+    ap.add_argument("--resort-every", type=int, default=16,
+                    help="fixed-lazy: the resort cadence")
     ap.add_argument("--width", type=int, default=None,
                     help="default 1920 (640 with --quick)")
     ap.add_argument("--height", type=int, default=None,
@@ -142,19 +164,18 @@ def main(argv=None) -> int:
     ap.add_argument("--fat-live-cap", type=int, default=None)
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after the timed run, trace this many more steps at "
-                    "view 0 with torch.profiler (printed to stderr)")
+                    "view 0 (in the lazy modes lazy steps after a resort, then as "
+                    "many resorts) with torch.profiler (printed to stderr)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu: the plain PyTorch versions, "
                     "for tests; a CPU time is not a device time")
     args = ap.parse_args(argv)
 
-    if args.mode in ("orbit", "fixed-lazy"):
-        raise NotImplementedError(
-            f"--mode {args.mode} trains through lazy frame plans, which are "
-            "not ported yet: ROADMAP queue 1 'lazy frame plans'"
-        )
-    # as in bench.py, --quick runs the fixed mode whatever --mode says
-    mode = "fixed" if args.quick else args.mode
+    mode = args.mode
+    lazy = mode in ("orbit", "fixed-lazy")
+    if lazy and (args.backend != "stream" or args.forward_only):
+        raise SystemExit(f"--mode {mode} trains lazy steps through the stream backend "
+                         "(no --backend pallas, no --forward-only)")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain path")
@@ -170,7 +191,7 @@ def main(argv=None) -> int:
                     fat_live_cap=args.fat_live_cap or LIVE_CAP)
     cfg = RenderConfig(backend=args.backend, chunk=128, **caps)
     g = bonsai_like(n=n, sh_degree=0, device=dev)
-    if mode == "orbit-exact":
+    if mode in ("orbit", "orbit-exact"):
         cams = orbit_cameras(args.views, width, height, device=dev)
     else:
         cams = [bench_camera(width=width, height=height, device=dev)]
@@ -188,6 +209,9 @@ def main(argv=None) -> int:
         extra["black_loss0"] = round(black, 5)
         g_train = perturb(g)
         del g
+
+    if lazy:  # every resort's budgets are gated there
+        return run_lazy(args, g_train, cams, cfg, targets, dev, extra)
 
     # every view's budgets must hold: an overflow means dropped work
     with torch.no_grad():
@@ -242,6 +266,94 @@ def main(argv=None) -> int:
     print(json.dumps({"metric": "1080p_fwd_bwd_ms_per_frame", "value": round(ms, 3),
                       "unit": "ms", **extra, "device": device_label(dev)}))
     return 0
+
+
+def clone(g: Gaussians) -> Gaussians:
+    return Gaussians(*(p.detach().clone() for p in g.parameters()))
+
+
+def run_lazy(args, g, cams, cfg, targets, dev, extra) -> int:
+    """bench.py::run_lazy: the lazy modes. A warm-up trainer on a copy of
+    g (resort, step, resort, step: the kernels' build, the fold) gives
+    loss0, the first step's loss, which is the exact path's; a fresh
+    trainer on g makes the timed run. orbit: a resort at each view, then
+    --steps-per-view steps, the device synchronised every 8 views as
+    bench.py does; fixed-lazy: --frames steps at the bench camera, a
+    resort every --resort-every. Every resort's overflow counters must
+    read 0. Prints bench.py's JSON line."""
+    def adam(g):
+        return torch.optim.Adam(g.parameters(), lr=1e-3)  # bench.py: optax.adam(1e-3)
+
+    t0 = time.perf_counter()
+    g_warm = clone(g)
+    tr = LazyTrainer(g_warm, cfg, adam(g_warm))
+    tr.resort(cams[0])
+    loss0 = float(tr.step(targets[0], cams[0]))
+    tr.resort(cams[0])  # the fold
+    tr.step(targets[0], cams[0])
+    tr.sync()
+    _sync(dev)
+    del tr, g_warm
+    print(f"# mode={args.mode} backend=stream n={g.means.shape[0]} "
+          f"{cams[0].width}x{cams[0].height} on {device_label(dev)}: warm-up "
+          f"{time.perf_counter() - t0:.1f}s loss0={loss0:.6f}", file=sys.stderr)
+
+    tr = LazyTrainer(g, cfg, adam(g))
+    ovfs = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    if args.mode == "orbit":
+        spv = args.steps_per_view
+        for i, cam in enumerate(cams):
+            ovfs.append(tr.resort(cam).ovf)
+            for _ in range(spv):
+                loss = tr.step(targets[i], cam)
+            if i % 8 == 7:
+                _sync(dev)
+        n_steps = len(cams) * spv
+        extra.update(views=len(cams), steps_per_view=spv, sweep_deg=SWEEP_DEG,
+                     loss0=round(loss0, 5), resorts=len(cams))
+    else:
+        k = args.resort_every
+        for s in range(args.frames):
+            if s % k == 0:
+                ovfs.append(tr.resort(cams[0]).ovf)
+            loss = tr.step(targets[0], cams[0])
+        n_steps = args.frames
+        extra.update(frames=n_steps, resort_every=k, loss0=round(loss0, 5))
+    tr.sync()
+    final = float(loss)  # waits for the device
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    if gate_overflow(ovfs):
+        return 1
+    extra["final_loss"] = round(final, 5)
+    if args.profile:  # lazy steps after a resort, then resorts (fold, plan, extract)
+        tr.resort(cams[0])
+        print(profile_steps(lambda: tr.step(targets[0], cams[0]), args.profile, dev),
+              file=sys.stderr)
+        print(profile_steps(lambda: tr.resort(cams[0]), args.profile, dev, unit="resort"),
+              file=sys.stderr)
+        tr.sync()
+    print(json.dumps({"metric": "1080p_fwd_bwd_ms_per_frame", "value": round(ms, 3),
+                      "unit": "ms", **extra, "device": device_label(dev)}))
+    return 0
+
+
+def gate_overflow(ovfs) -> bool:
+    """bench.py::_gate_overflow: every resort's overflow counters summed
+    (read from the card once, after the run); prints them and returns
+    True when any is nonzero (work was dropped, so the run fails)."""
+    tot = {}
+    for o in ovfs:
+        for k, v in o.items():
+            if k.startswith("n_") and k != "n_pairs":
+                tot[k] = tot.get(k, 0) + int(v)
+    bad = sum(tot.values())
+    print(f"# overflow over {len(ovfs)} resort(s): {bad} (must be 0) {tot}", file=sys.stderr)
+    if bad:
+        print("# FAIL: overflow counters nonzero; raise --fat-cap / --fat-live-cap",
+              file=sys.stderr)
+    return bad > 0
 
 
 if __name__ == "__main__":

@@ -12,7 +12,10 @@
 // sum wrapping in int32.
 //
 // Hopper's forms: one block of 1024 threads stages x in shared memory
-// (64 KB, dynamic); the roll is a rotated index into it; the dynamic
+// (64 KB, dynamic) by one bulk asynchronous copy (the TMA's
+// cp.async.bulk, x 16-byte aligned) that thread 0 issues and the block
+// waits for on one mbarrier (expect_tx of the 64 KB); the roll is a
+// rotated index into it; the dynamic
 // slice and its transpose are one thread per element reading
 // y[3, k·128 + l]; the data-dependent loop stays a loop whose exit test
 // is reduced over the block (__syncthreads_or); the substage's partner
@@ -21,9 +24,10 @@
 // pass over the warps' partials, in uint32.
 //
 // Bound on the card: none that matters — 64 KB in, 516 bytes out and
-// ~70k integer operations take well under a microsecond; one launch of
-// one block measures launch latency, a 64 KB stage and one block's
-// barriers.
+// ~100k integer operations take well under a microsecond at the card's
+// rates; one launch of one block measures the launch (the empty launch
+// at this shape, csrc/probe_empty.cu), a 64 KB stage, one SM's issue of
+// the 16k elements' substage and one block's barriers.
 #include "probe.cuh"
 
 namespace {
@@ -34,15 +38,37 @@ constexpr int kRowsG = 8;
 constexpr int kCap = 2048;
 constexpr int kThreadsG = 1024;
 constexpr int kLoopMax = 1000000000;  // the probe's 10**9
+constexpr int kStageBytes = static_cast<int>(sizeof(int)) * kRowsG * kCap;  // 64 KB
 
 __global__ void mosaic_kernel(const int* __restrict__ x, int* __restrict__ o,
                               int* __restrict__ s) {
-  extern __shared__ int xs[];  // [8][2048]
+  extern __shared__ __align__(128) int xs[];  // [8][2048]
   __shared__ int red[2][32];
   __shared__ int acc0, row1;
+  __shared__ __align__(8) unsigned long long stage_bar;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int e = tid; e < kRowsG * kCap; e += kThreadsG) xs[e] = x[e];
-  __syncthreads();
+  // the stage: one bulk copy of x into xs by the TMA, which completes the
+  // barrier's transaction count when its 64 KB have landed
+  const unsigned bar = static_cast<unsigned>(__cvta_generic_to_shared(&stage_bar));
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(kStageBytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(xs))), "l"(x),
+           "r"(kStageBytes), "r"(bar) : "memory");
+  }
+  __syncthreads();  // the barrier is initialised before any thread waits on it
+  unsigned staged = 0;
+  while (!staged) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                 " selp.u32 %0, 1, 0, p;\n}" : "=r"(staged) : "r"(bar) : "memory");
+  }
   const int amt = floor_mod(xs[0], 1024);
   const int k = floor_mod(xs[2], kCap / 128);
   // y[r, i]: the roll as a rotated index (kCap is a power of two)
@@ -94,7 +120,9 @@ __global__ void mosaic_kernel(const int* __restrict__ x, int* __restrict__ o,
 
 // x [8, 2048] int32 → o [128] int32 (the probe's o[3]), s [1] int32
 extern "C" int gsjax_probe_mosaic(const int* x, int* o, int* s, void* stream) {
-  const int smem = static_cast<int>(sizeof(int)) * kRowsG * kCap;
+  if (reinterpret_cast<unsigned long long>(x) % 16 != 0)  // the bulk copy's alignment
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = kStageBytes;
   static bool smem_set = false;  // once: the call may be captured in a graph
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(

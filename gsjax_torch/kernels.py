@@ -4,8 +4,8 @@ The sources under gsjax_torch/csrc/ compile with nvcc, one process per
 source and all at once, then link into a shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so the build takes
 seconds). There are two libraries: "path", the serving and training
-path's kernels A-F, and "probes", the probes G-J (gsjax_torch.tools, on
-no path), so that the path's first call never compiles the probes. Each
+path's kernels A-F, and "probes", the probes G-J and the empty launch
+that measures their launch floor (gsjax_torch.tools, on no path), so that the path's first call never compiles the probes. Each
 is built at its first use, into gsjax_torch/_build/, under a file name
 that carries a hash of its sources, headers and flags: an edited source
 rebuilds its library, an unchanged one loads the cached file.
@@ -40,7 +40,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {"path": ("repeat.cu", "expand.cu", "stream_fwd.cu", "stream_bwd.cu",
                     "slots_fwd.cu", "slots_bwd.cu"),
            "probes": ("probe_mosaic.cu", "probe_compact.cu", "probe_scalars.cu",
-                      "probe_chunk.cu")}
+                      "probe_chunk.cu", "probe_empty.cu")}
 HEADERS = {"path": ("common.cuh", "blend.cuh"), "probes": ("common.cuh", "probe.cuh")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,7 +50,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0, "stream_bwd": 0,
             "stream_class_sum": 0, "slots_fwd": 0, "slots_bwd": 0, "probe_mosaic": 0,
-            "probe_compact": 0, "probe_scalars": 0, "probe_chunk": 0}
+            "probe_compact": 0, "probe_scalars": 0, "probe_chunk": 0, "probe_empty": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # library → its C entry points: (argtypes); each returns
@@ -92,6 +92,8 @@ _SIGNATURES = {"path": {
     "gsjax_probe_scalars": (_I, _P, _P, _I, _I, _P, _P),
     # variant, rows, band, g, out, stream
     "gsjax_probe_chunk": (_I, _P, _P, _I, _P, _P),
+    # grid, block, smem, out, stream
+    "gsjax_probe_empty": (_I, _I, _I, _P, _P),
 }}
 
 _libs: dict = {}

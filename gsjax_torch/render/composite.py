@@ -28,13 +28,17 @@ def clipped_pair_stream(bins: TileBins, cfg: RenderConfig):
     return bins.pid_sorted[:cap], starts, n_dropped
 
 
-def assemble_band(img_t, T_t, bins: TileBins, cfg: RenderConfig):
+def assemble_band(img_t, T_t, bins: TileBins, cfg: RenderConfig, bg=None):
     """Per-tile flat pixels [T, n_px, 3] / [T, n_px] → band image
     [band_rows·ts, tiles_x·ts, 3] and transmittance map, with the
-    background weighted by the actual transmittance."""
+    background weighted by the actual transmittance. `bins`: anything
+    with its tiles_x and band_rows (a TileBins, a lazy FramePlan); `bg`:
+    cfg.background as a [3] tensor on img_t's device, made from the host
+    values when not given (a copy that waits for the stream)."""
     ts = cfg.tile_size
     tiles_x, band_rows = bins.tiles_x, bins.band_rows
-    bg = torch.tensor(cfg.background, dtype=torch.float32, device=img_t.device)
+    if bg is None:
+        bg = torch.tensor(cfg.background, dtype=torch.float32, device=img_t.device)
     img_t = img_t + T_t[..., None] * bg
     img = img_t.reshape(band_rows, tiles_x, ts, ts, 3)
     img = img.permute(0, 2, 1, 3, 4).reshape(band_rows * ts, tiles_x * ts, 3)

@@ -369,8 +369,9 @@ def fat_repeat_inputs(p, tiles_x: int, tiles_y: int, cfg: RenderConfig):
 def _exact_rows(p, tiles_x, tiles_y, cfg):
     """Exact-mode key material for the N primaries and the fat_cap copy
     slots: (home_key, depth, wpa, wpb, on_ext, tail_tab, n_ovf, n_copies,
-    live_cap, seg_base); seg_base [N+1]: parent i's copy slots are
-    [seg_base[i], seg_base[i+1]), clipped at fat_cap."""
+    live_cap, seg_base, n_ex); seg_base [N+1]: parent i's copy slots are
+    [seg_base[i], seg_base[i+1]), clipped at fat_cap; n_ex [N]: each
+    splat's copy rows, unclipped."""
     if cfg.fat_max_blocks >= 1024:
         # the training VJP's block-bounded segment reduction needs every
         # parent's copy run shorter than 1024 rows (reference behaviour)
@@ -411,7 +412,7 @@ def _exact_rows(p, tiles_x, tiles_y, cfg):
         + torch.clamp(n_copies - fat_cap, min=0)
     )
     return (home_key, depth_all, wpa, wpb, torch.cat([on, tail_ok]),
-            tail_tab, n_ovf, n_copies, live_cap, seg_base)
+            tail_tab, n_ovf, n_copies, live_cap, seg_base, n_ex)
 
 
 def sort_key(key_hi: torch.Tensor, dkey: torch.Tensor) -> torch.Tensor:
@@ -427,11 +428,42 @@ def sort_perm(key_hi: torch.Tensor, dkey: torch.Tensor) -> torch.Tensor:
     return torch.sort(sort_key(key_hi, dkey), stable=True).indices
 
 
-def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig):
+def copy_slot_parents(n_ex, fat_cap: int):
+    """The splat each copy slot belongs to, [fat_cap] i64, as the
+    reference defines it (a mark at each fat splat's first slot, clamped
+    to the last slot, and a running max): fat splat i (n_ex[i] > 0) owns
+    slots [base[i], base[i] + n_ex[i]), base the exclusive cumsum of
+    n_ex; a slot past the copy count, and the last slot when the copies
+    overflow fat_cap, belong to the last fat splat (0 when there is
+    none). Here the owner is a binary search of the bases (the last splat
+    whose base is at most the slot: a thin splat's base is the next
+    one's): torch's running max, a scan with indices, took 6.8 ms for the
+    2.3M slots of the bonsai 1080p orbit on an H100 (bench.run
+    --profile)."""
+    base = torch.cumsum(n_ex, 0) - n_ex
+    n_copies = base[-1] + n_ex[-1]
+    idx = torch.arange(n_ex.shape[0], device=n_ex.device)
+    last_fat = torch.where(n_ex > 0, idx, 0).amax()
+    slot = torch.arange(fat_cap, device=n_ex.device)
+    owner = torch.searchsorted(base, slot, right=True) - 1
+    past = (slot >= n_copies) | ((slot == fat_cap - 1) & (n_copies > fat_cap))
+    return torch.where(past, last_fat, owner)
+
+
+def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
+                      return_extras: bool = False):
     """Sort the PROJECTED scene by (home tile, depth), splitting fat
     splats into per-block copies in exact mode. Returns
     (p_home: ProjectedSplats [NH], HomeLayout); NH = N + live_cap (exact)
-    or N (legacy)."""
+    or N (legacy).
+
+    With return_extras (exact mode), also a dict of what the lazy frame
+    plans need (render/lazy.py): `inv` [N] / `inv_tail` [F] (each
+    pre-sort row's home row, ≥ NH ⇒ truncated), `seg_base` [N+1] (the
+    copy slots of each parent), `parent_of_slot` [F] (copy_slot_parents)
+    and `src_sorted` [NH] (the source splat of each home row: the sorted
+    permutation's own entry for a primary row, its slot's parent for a
+    copy row)."""
     n = p.depth.shape[0]
     dev = p.depth.device
     tiles_x = cfg.tiles_x(cam.width)
@@ -445,6 +477,8 @@ def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig):
         )
     t_sent = tiles_x * tiles_y
 
+    if return_extras and cfg.footprint_clamp:
+        raise ValueError("return_extras needs exact footprints (footprint_clamp=False)")
     if cfg.footprint_clamp:
         htx, hty, on = _legacy_home(p, tiles_x, tiles_y, cfg)
         home_key = torch.where(on, hty * tiles_x + htx, torch.full_like(htx, t_sent))
@@ -459,7 +493,7 @@ def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig):
         nh = n
     else:
         (home_key, depth_all, wpa, wpb, on_ext, tail_tab, n_ovf, n_copies,
-         live_cap, seg_base) = _exact_rows(p, tiles_x, tiles_y, cfg)
+         live_cap, seg_base, n_ex) = _exact_rows(p, tiles_x, tiles_y, cfg)
         nh = n + live_cap
 
     perm_full = sort_perm(home_key, depth_bits(depth_all))
@@ -509,4 +543,10 @@ def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig):
         tiles_x=tiles_x,
         tiles_y=tiles_y,
     )
-    return p_home, layout
+    if not return_extras:
+        return p_home, layout
+    parent = copy_slot_parents(n_ex.to(torch.int64), tail_tab.shape[0])
+    src_sorted = torch.where(perm < n, perm, parent[torch.clamp(perm - n, min=0)])
+    extras = {"inv": inv_ext[:n], "inv_tail": inv_ext[n:], "seg_base": seg_base,
+              "parent_of_slot": parent, "src_sorted": src_sorted}
+    return p_home, layout, extras

@@ -113,6 +113,22 @@ def time_over_base_ms(fn, base_fn, device: torch.device, reps: int):
     return ms, (before + time_ms(base_fn, device, reps)) / 2
 
 
+def probe_empty(out: torch.Tensor, grid: int, block: int, smem: int = 0) -> torch.Tensor:
+    """Launch the empty kernel (csrc/probe_empty.cu): `grid` blocks of
+    `block` threads with `smem` bytes of dynamic shared memory each, of
+    which only block 0's thread 0 does anything: out[0] = 0 (out: int32
+    on the card). A measuring tool with no plain version: a CPU tensor
+    raises (there is no fallback)."""
+    if out.device.type != "cuda" or out.dtype != torch.int32 or out.numel() < 1:
+        raise ValueError(f"probe_empty: expected an int32 tensor on cuda, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    err = kernels.lib("probes").gsjax_probe_empty(grid, block, smem, out.data_ptr(),
+                                                  kernels.stream_ptr(out))
+    kernels.check(err, "probe_empty")
+    kernels.LAUNCHES["probe_empty"] += 1
+    return out
+
+
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
     """int64 → int32 with two's-complement wrap-around (jnp's int32 sums
     wrap; torch's int32 sum widens to int64)."""

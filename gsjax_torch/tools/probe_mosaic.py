@@ -53,6 +53,8 @@ def probe_mosaic(x: torch.Tensor):
         raise ValueError(f"probe_mosaic: expected int32 [{ROWS}, {CAP}] on cuda, got "
                          f"{x.dtype} {tuple(x.shape)} on {x.device}")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel stages x with one 16-byte aligned bulk copy
+        x = x.clone()
     o = torch.empty(128, dtype=torch.int32, device=x.device)
     s = torch.empty(1, dtype=torch.int32, device=x.device)
     err = kernels.lib("probes").gsjax_probe_mosaic(x.data_ptr(), o.data_ptr(),

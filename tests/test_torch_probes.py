@@ -285,3 +285,15 @@ def test_probe_entry_points_run_on_cpu(module, argv, capsys):
     module.main(["--device", "cpu", "--reps", "1", *argv])
     out = capsys.readouterr().out
     assert "host-clock" in out and "ms" in out
+
+
+def test_probe_empty_raises_on_cpu():
+    """The empty launch measures the card's launch floor: it has no plain
+    version, so a CPU tensor raises and nothing is counted."""
+    from gsjax_torch import kernels
+    from gsjax_torch.tools import probe_empty
+
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="probe_empty"):
+        probe_empty(torch.zeros(1, dtype=torch.int32), 1, 32)
+    assert kernels.LAUNCHES["probe_empty"] == 0

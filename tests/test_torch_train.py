@@ -342,6 +342,7 @@ def test_bench_runner_on_the_cpu(capsys):
     assert line["mode"] == "fixed" and line["frames"] == 2
     assert line["device"] == "cpu" and "vs_baseline" not in line
     assert line["loss0"] > 0 and line["value"] > 0
-    for mode in ("orbit", "fixed-lazy"):
-        with pytest.raises(NotImplementedError, match="lazy frame plans"):
-            trun.main(["--mode", mode, "--device", "cpu"])
+    for mode in ("orbit", "fixed-lazy"):  # the lazy modes: stream, training only
+        for flag in (["--backend", "pallas"], ["--forward-only"]):
+            with pytest.raises(SystemExit, match="stream backend"):
+                trun.main(["--mode", mode, "--device", "cpu", *flag])

@@ -12,13 +12,16 @@ Phases (any failure exits non-zero; there is no CPU path):
                every nvcc at once, each library's time printed; beside
                them the forward's `baseline` variant (tools/
                blend_fwd_variants: C and E with one pixel per thread, no
-               strip cull and no warp stop: the full walk);
+               strip cull and no warp stop: the full walk) and the native
+               PLY parser (native/loader.cpp, the host C++ compiler);
   3. scene   — bonsai_like(n=1,200,000, seed=0, sh_degree=0) on cuda:0;
   4. cameras — bench.py's 1080p orbit: 30 views over 30° of azimuth;
   5. config  — chunk 128, fat_cap 2,342,912, fat_live_cap 1,617,920 (the
-               copy budgets an autotune pass measured for this orbit;
-               autotune is not ported yet), backend stream — and the same
-               with backend "pallas", the flat slot-stream path;
+               copy budgets the reference's autotune derived for this
+               orbit, BENCH_r05.json: phases 1-12 keep them, so their
+               numbers compare with earlier runs; phase 14 derives them),
+               backend stream — and the same with backend "pallas", the
+               flat slot-stream path;
   6. kernels — on view 0, each kernel against its plain PyTorch version
                at the path's shapes: repeat (A: the tail table and its 4
                key rows) and expand (B: the live pairs in pid order and
@@ -128,7 +131,33 @@ Phases (any failure exits non-zero; there is no CPU path):
                within 5%, view 0's loss falling, the home-order parameters
                finite, sync() changing the master; median ms per lazy
                step, ms per resort and its parts (fold, plan, extract),
-               peak device memory.
+               peak device memory;
+ 13. io      — bonsai_like(1,200,000, SH degree 3) written with save_ply
+               (~298 MB) and read back through the native parser, the
+               numpy parser and load_ply_streamed, each bit-equal to the
+               saved tensors; save_splat, then load_splat and
+               load_splat_streamed bit-equal to each other, within the
+               format's u8 steps of the scene; each loader's MB/s; view 0
+               of the loaded .ply bit-equal to the in-memory scene's,
+               overflow 0; the in-repo scene.splat at 1080p (caps by
+               autotune), both backends, card vs the CPU's plain path
+               within C's gate; a
+               4-group BandedGaussians (degrees 0-3, the quarters) vs its
+               to_gaussians() within C's gate, one backward reaching every
+               group's parameters, finite;
+ 14. autotune — derive_caps over the 30-view orbit at the scene-scaled
+               base caps, one measuring pass a view (A and B once each,
+               nothing of C-F): fat_cap and fat_live_cap BENCH_r05's,
+               pair_cap and repack_rows within one rounding step (128
+               pairs, one row) of its; each view's counts, the pass's time
+               a view and in total;
+ 15. garden  — garden_like(5,000,000, SH degree 2), caps by bench.run's
+               autotune over orbit views 0-3; view 0 rendered with every
+               overflow counter 0; LazyTrainer on perturb(g) toward that
+               render: two resorts (A, B once each, overflow 0), each
+               followed by 16 lazy steps launching C, D, D's class sum once
+               a step and nothing else; the loss falls; ms per lazy step,
+               per resort, NH and the peak device memory.
 Prints the kernels' JSON line (A-J and D's class sum, each with its
 time, its plain version's, its bound and its launches: A-F in their
 path's training run,
@@ -162,6 +191,13 @@ TRAIN_LOSS0 = 0.00031  # bench.py's loss0 for perturb(g) at view 0 (BENCH_r05.js
 SERVE_VIEWS = 4
 TRAIN_VIEWS, FIXED_STEPS = 4, 8
 LAZY_VIEWS, LAZY_STEPS = 4, 16  # phase 12: a resort at each view, bench.py's steps per view
+# BENCH_r05.json's autotune line for this orbit (the reference's derive_caps
+# over its 30 views): phases 1-12 render and train at these copy budgets,
+# and phase 14 holds the port's derive_caps to them
+R05_FAT_CAP, R05_LIVE_CAP = 2_342_912, 1_617_920
+R05_PAIR_CAP, R05_REPACK_ROWS = 11_353_088, 1_016
+IO_SPLATS, IO_SH_DEGREE = 1_200_000, 3  # phase 13: bonsai_like written and read back
+GARDEN_SPLATS, GARDEN_SH_DEGREE, GARDEN_VIEWS = 5_000_000, 2, 4  # phase 15
 FLAT_FIXED_STEPS = 4
 # the kernels each path launches (LAUNCHES keys) serving, and besides
 # those when training
@@ -928,6 +964,298 @@ def probe_line(name: str, replaces: str, launches: int, err: float, ms: float,
                 plain_ms=plain_ms, library_ms=library_ms, **b)
 
 
+def c_gate(a, b) -> tuple:
+    """Two renders against C's gate: (p99.9 |Δ|, max |Δ|, within)."""
+    import torch
+
+    d = (a - b).abs().flatten()
+    p999 = float(torch.quantile(d[:: max(1, d.numel() // 8_000_000)].float(), 0.999))
+    return p999, float(d.max()), p999 <= 2e-5 and float(d.max()) <= 5e-3
+
+
+def ovf_of(aux) -> dict:
+    return {k: int(v) for k, v in aux.items() if k.startswith("n_") and k.endswith("overflow")}
+
+
+def same_fields(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in RAW_FIELDS)
+
+
+def io_phase(cfg, cam0, dev, card) -> dict:
+    """13. Scene IO on the card at full size: bonsai_like(IO_SPLATS, SH
+    degree IO_SH_DEGREE) written with save_ply and read back through the
+    native parser, the numpy parser and load_ply_streamed, each bit-equal
+    to the saved tensors; written with save_splat and read back through
+    load_splat and load_splat_streamed (bit-equal to each other, the
+    positions to the saved ones, the rest within the format's u8 steps);
+    each loader's MB/s (file to tensors on the card). View 0 of the loaded
+    .ply renders bit-equal to the in-memory scene's, overflow 0. The
+    in-repo scene.splat at 1080p on the card against the CPU's plain path
+    within C's gate, through both backends. A 4-group BandedGaussians
+    (degrees 0-3, the scene's quarters) against its to_gaussians() within
+    C's gate, and one backward that reaches every group's parameters,
+    finite. The files live in a temporary directory that is removed
+    afterwards."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch.bench.run import autotune
+    from gsjax_torch.bench.synth import bonsai_like
+    from gsjax_torch.core.gaussians import SH_C0
+    from gsjax_torch.io import native
+    from gsjax_torch.io.ply import save_ply
+
+    out = {}
+    g3 = bonsai_like(n=IO_SPLATS, seed=0, sh_degree=IO_SH_DEGREE, device=dev)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="io_", dir=OUT_DIR)
+    try:
+        def timed(what, fn, nbytes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            out[what] = dict(s=round(s, 3), mb_per_s=round(nbytes / s / 1e6, 1))
+            return r
+
+        ply = os.path.join(tmp, "bonsai.ply")
+        size = len(timed("save_ply", lambda: save_ply(g3, ply), 0))
+        out["save_ply"]["mb_per_s"] = round(size / out["save_ply"]["s"] / 1e6, 1)
+        with open(ply, "rb") as fh:
+            parser = "native" if native.parse_ply_native(fh.read()) is not None else "numpy"
+        check(parser == "native", "io: the native parser declined bonsai's .ply")
+        loaded = {
+            "load_ply (native)": timed("load_ply (native)",
+                                       lambda: gt.load_ply(ply, device=dev), size),
+            "load_ply (numpy)": timed("load_ply (numpy)", lambda: gt.load_ply(
+                ply, use_native=False, device=dev), size),
+            "load_ply_streamed": timed("load_ply_streamed",
+                                       lambda: gt.load_ply_streamed(ply, device=dev), size),
+        }
+        for what, gl in loaded.items():
+            check(same_fields(gl, g3), f"io: {what} differs from the saved scene")
+        print(f"# io on {card}: bonsai_like({IO_SPLATS}, sh_degree={IO_SH_DEGREE}) .ply "
+              f"{size / 1e6:.1f} MB; each loader bit-equal to the saved tensors; "
+              + "; ".join(f"{k} {v['s']} s, {v['mb_per_s']} MB/s" for k, v in out.items())
+              + f" (the native parser: libgsjax_torch_io from native/loader.cpp)")
+
+        with torch.no_grad():
+            img_l, aux = gt.render(loaded["load_ply (native)"], cam0, cfg, return_aux=True)
+            img_m = gt.render(g3, cam0, cfg)
+        check(torch.equal(img_l, img_m), "io: the loaded .ply renders differently")
+        check(not any(ovf_of(aux).values()), f"io: overflow {ovf_of(aux)}")
+        del loaded, img_l, img_m
+
+        spl = os.path.join(tmp, "bonsai.splat")
+        gt.save_splat(g3, spl)
+        size_s = os.path.getsize(spl)
+        gs = timed("load_splat", lambda: gt.load_splat(spl, device=dev), size_s)
+        gss = timed("load_splat_streamed",
+                    lambda: gt.load_splat_streamed(spl, device=dev), size_s)
+        check(same_fields(gs, gss), "io: load_splat_streamed differs from load_splat")
+        check(torch.equal(gs.means, g3.means), "io: .splat positions differ from the saved")
+        with torch.no_grad():
+            d_op = float((gs.opacities - g3.opacities).abs().max())
+            dot = (gs.normalized_quats() * g3.normalized_quats()).sum(-1).abs()
+            rgb = lambda gg: (0.5 + SH_C0 * gg.sh[:, 0]).clamp(0.0, 1.0)
+            d_rgb = float((rgb(gs) - rgb(g3)).abs().max())
+        check(d_op <= 1 / 255 + 1e-3 and float((1 - dot).max()) < 1e-3 and
+              d_rgb <= 1 / 255 + 1e-3, f"io: .splat round trip beyond its u8 steps "
+              f"(opacity {d_op}, quats {float((1 - dot).max())}, rgb {d_rgb})")
+        print(f"# io: .splat {size_s / 1e6:.1f} MB: load_splat {out['load_splat']} and "
+              f"load_splat_streamed {out['load_splat_streamed']} bit-equal, positions as "
+              f"saved, opacity / rgb within a u8 step ({d_op:.2e}, {d_rgb:.2e})")
+        del gs, gss
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the in-repo scene.splat at 1080p (tools/smoke_render.py's camera at
+    # 6x its size), its caps from autotune, both backends: card against
+    # the CPU's plain path
+    cam_s = dict(fx=1800.0, fy=1800.0, width=WIDTH, height=HEIGHT)
+    gsc = gt.load_splat(os.path.join(ROOT, "scene.splat"), device=dev)
+    cfg_s = autotune(gsc, [gt.Camera.create(**cam_s, device=dev)],
+                     gt.RenderConfig(backend="stream", chunk=128))
+    for backend in ("stream", "pallas"):
+        imgs = []
+        for device in (dev, "cpu"):
+            gsc = gt.load_splat(os.path.join(ROOT, "scene.splat"), device=device)
+            with torch.no_grad():
+                img, aux = gt.render(gsc, gt.Camera.create(**cam_s, device=device),
+                                     dataclasses.replace(cfg_s, backend=backend),
+                                     return_aux=True)
+            check(not any(ovf_of(aux).values()), f"io: scene.splat overflow {ovf_of(aux)}")
+            imgs.append(img.cpu())
+        p999, dmax, ok = c_gate(imgs[0], imgs[1])
+        print(f"# io: scene.splat ({gsc.n} splats) at {WIDTH}x{HEIGHT} ({backend}): card vs "
+              f"the CPU's plain path p99.9 |Δ| {p999:.2e}, max {dmax:.2e}; mean "
+              f"{float(imgs[0].mean()):.4f}")
+        check(ok and float(imgs[0].max()) > 0, f"io: scene.splat ({backend}) card vs cpu "
+              f"p99.9 {p999}, max {dmax}")
+        out[f"scene_splat_{backend}"] = dict(p999=p999, max=dmax)
+
+    # a banded scene: the bonsai scene's quarters at degrees 0-3
+    q = IO_SPLATS // 4
+    with torch.no_grad():
+        bg = gt.BandedGaussians.from_groups(
+            [g3.slice(i * q, (i + 1) * q).with_sh_degree(i) for i in range(4)])
+        g_pad = bg.to_gaussians()
+        img_b = gt.render(bg, cam0, cfg)
+        img_p = gt.render(g_pad, cam0, cfg)
+    p999, dmax, ok = c_gate(img_b, img_p)
+    check(ok, f"io: banded render vs its to_gaussians() p99.9 {p999}, max {dmax}")
+    (gt.render(bg, cam0, cfg) ** 2).mean().backward()
+    for i, grp in enumerate(bg.groups):
+        for f, t in grp.named_parameters():
+            check(t.grad is not None and bool(torch.isfinite(t.grad).all()),
+                  f"io: banded group {i}: gradient of {f} missing or not finite")
+        check(float(grp.means.grad.abs().max()) > 0, f"io: banded group {i}: zero gradient")
+    print(f"# io: BandedGaussians {bg.band_counts} at degrees 0-3 ({bg.sh_bytes() / 1e6:.1f} "
+          f"MB of SH against {g_pad.sh.numel() * 4 / 1e6:.1f} padded): render vs "
+          f"to_gaussians() p99.9 |Δ| {p999:.2e}, max {dmax:.2e}"
+          f"{', bit-equal' if torch.equal(img_b, img_p) else ''}; one backward reached "
+          f"all {len(list(bg.parameters()))} group parameters, finite")
+    out["banded"] = dict(p999=p999, max=dmax)
+    return out
+
+
+def autotune_phase(g, cams, dev, card) -> dict:
+    """14. derive_caps over bench.py's 30-view bonsai orbit at chunk 128
+    and the scene-scaled base caps (bench.py's configuration), one
+    measuring pass a view (project, kernel A, kernel B: the counters show
+    A and B once a view and nothing of C-F); each view's counts and the
+    derived config printed. fat_cap and fat_live_cap must be BENCH_r05's,
+    pair_cap and repack_rows within one rounding step of its (128 pairs,
+    one row); the raw n_pairs printed. Times per view and in total."""
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import kernels
+    from gsjax_torch.core.autotune import derive_caps, measure_occupancy
+
+    base = gt.RenderConfig(backend="stream", chunk=128)
+    measure_occupancy(g, cams[0], base)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ms, view_ms = [], []
+    t_all = time.perf_counter()
+    for cam in cams:
+        t0 = time.perf_counter()
+        ms.append(measure_occupancy(g, cam, base))  # reads the counts: synchronised
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+    t_derive = time.perf_counter()
+    cfg = derive_caps(g, cams, base, ms=ms)
+    total_ms = (time.perf_counter() - t_all) * 1e3
+    derive_ms = (time.perf_counter() - t_derive) * 1e3
+    launched = dict(kernels.LAUNCHES)
+    want = {k: len(cams) * int(k in ("repeat", "expand")) for k in launched}
+    keys = ("n_valid", "n_live_prim", "n_copies", "n_pairs", "n_fat_overflow")
+    for v, m in enumerate(ms):
+        print(f"# autotune view {v}: " + ", ".join(f"{k} {m[k]}" for k in keys)
+              + f", max cand {int(m['cand'].max())}; {view_ms[v]:.2f} ms")
+    worst = {k: max(m[k] for m in ms) for k in ("n_copies", "n_pairs")}
+    worst["live_copies"] = max(m["n_valid"] - m["n_live_prim"] for m in ms)
+    derived = {f: getattr(cfg, f) for f in ("fat_cap", "fat_live_cap", "pair_cap",
+                                             "repack_w", "repack_rows")}
+    print(f"# autotune on {card}: {len(cams)} views, median {statistics.median(view_ms):.2f} "
+          f"ms a view, {total_ms:.1f} ms in all (derive {derive_ms:.1f}); launches "
+          f"{nonzero(launched)}; worst view {worst}; derived {derived} (BENCH_r05: fat_cap "
+          f"{R05_FAT_CAP}, live_cap {R05_LIVE_CAP}, pair_cap {R05_PAIR_CAP}, repack_rows "
+          f"{R05_REPACK_ROWS})")
+    check(launched == want, f"autotune: launches {launched} (want A and B once a view)")
+    check((cfg.fat_cap, cfg.fat_live_cap) == (R05_FAT_CAP, R05_LIVE_CAP),
+          f"autotune: fat_cap {cfg.fat_cap}, fat_live_cap {cfg.fat_live_cap}: not "
+          f"BENCH_r05's {R05_FAT_CAP}, {R05_LIVE_CAP}")
+    check(abs(cfg.pair_cap - R05_PAIR_CAP) <= 128 and
+          abs(cfg.repack_rows - R05_REPACK_ROWS) <= 1,
+          f"autotune: pair_cap {cfg.pair_cap}, repack_rows {cfg.repack_rows}: not within "
+          f"one step of BENCH_r05's {R05_PAIR_CAP}, {R05_REPACK_ROWS}")
+    return dict(view_ms=view_ms, total_ms=total_ms, derived=derived, worst=worst,
+                launches=launched)
+
+
+def garden_phase(dev, card) -> dict:
+    """15. Garden on the card: garden_like(GARDEN_SPLATS, SH degree
+    GARDEN_SH_DEGREE), caps from derive_caps over orbit views
+    0-(GARDEN_VIEWS-1) (bench.run's autotune: the base grows to the
+    measured copy demand if the scene-scaled one overflows); view 0
+    rendered with every overflow counter 0; a LazyTrainer on perturb(g)
+    toward the clean scene's render of view 0: a resort (overflow 0), then
+    LAZY_STEPS lazy steps, each launching C, D and D's class sum once and
+    nothing else, the loss falling. Prints ms per lazy step (median), ms
+    per resort, NH and the card's peak allocated memory."""
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import kernels
+    from gsjax_torch.bench.run import autotune, orbit_cameras, perturb
+    from gsjax_torch.bench.synth import garden_like
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = garden_like(n=GARDEN_SPLATS, sh_degree=GARDEN_SH_DEGREE, device=dev)
+    cams = orbit_cameras(30, WIDTH, HEIGHT, device=dev)[:GARDEN_VIEWS]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = autotune(g, cams, gt.RenderConfig(backend="stream", chunk=128))
+    tune_s = time.perf_counter() - t0
+    caps = {f: getattr(cfg, f) for f in ("fat_cap", "fat_live_cap", "pair_cap")}
+    with torch.no_grad():
+        target, aux = gt.render(g, cams[0], cfg, return_aux=True)
+    check(not any(ovf_of(aux).values()), f"garden: view 0 overflow {ovf_of(aux)}")
+    check(bool(torch.isfinite(target).all()), "garden: view 0 not finite")
+    g_train = perturb(g)
+    del g
+    tr = gt.LazyTrainer(g_train, cfg, torch.optim.Adam(g_train.parameters(), lr=1e-3))
+    resort_ms, step_ms, losses = [], [], []
+    for r in range(2):  # the second resort folds the first one's steps back
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        plan = tr.resort(cams[0])
+        torch.cuda.synchronize()
+        resort_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = dict(kernels.LAUNCHES)
+        ovf = {k: int(v) for k, v in plan.ovf.items() if k != "n_pairs"}
+        check(not any(ovf.values()), f"garden: resort {r} overflow {ovf}")
+        check(launched == {k: int(k in ("repeat", "expand")) for k in launched},
+              f"garden: the resort launched {launched}")
+        kernels.reset_launches()
+        for _ in range(LAZY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = tr.step(target, cams[0])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        launched = dict(kernels.LAUNCHES)
+        want = {k: LAZY_STEPS * int(k in ("stream_fwd", "stream_bwd", "stream_class_sum"))
+                for k in launched}
+        check(launched == want, f"garden: {LAZY_STEPS} lazy steps launched {launched}")
+    tr.sync()
+    for n_, t in g_train.named_parameters():
+        check(bool(torch.isfinite(t).all()), f"garden: {n_} not finite")
+    check(losses[-1] < losses[0], f"garden: the loss did not fall ({losses[0]} -> "
+          f"{losses[-1]})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"# garden on {card}: garden_like({GARDEN_SPLATS}, sh_degree={GARDEN_SH_DEGREE}), "
+          f"set-up {setup_s:.1f} s, autotune over views 0-{GARDEN_VIEWS - 1} {tune_s:.2f} s "
+          f"-> {caps}; view 0: {int(aux['n_pairs'])} pairs, overflow 0; lazy: NH "
+          f"{plan.nh}, resorts {[round(x, 1) for x in resort_ms]} ms, median "
+          f"{statistics.median(step_ms):.3f} ms per lazy step over {len(step_ms)} (all "
+          f"{[round(x, 1) for x in step_ms]}), loss {losses[0]:.7f} -> {losses[-1]:.7f}; "
+          f"C, D, D' once a step; peak device memory {peak:.2f} GiB")
+    return dict(caps=caps, nh=plan.nh, resort_ms=resort_ms, step_ms=step_ms, losses=losses,
+                peak_gib=peak, tune_s=tune_s)
+
+
 def _fmt(d: dict, digits: int = 4) -> dict:
     return {k: round(x, digits) for k, x in d.items()}
 
@@ -945,12 +1273,13 @@ def main() -> int:
 
     import gsjax_torch as gt
     from gsjax_torch import kernels
-    from gsjax_torch.bench.run import FAT_CAP, LIVE_CAP, orbit_cameras, perturb
+    from gsjax_torch.bench.run import orbit_cameras, perturb
     from gsjax_torch.bench.synth import bonsai_like
     from gsjax_torch.render import binning, flat, homesort, stream
     from gsjax_torch.render.common import depth_bits
     from gsjax_torch.render.composite import (assemble_band, att_table,
                                               clipped_pair_stream)
+    from gsjax_torch.io import native
     from gsjax_torch.tools import blend_fwd_variants
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain blend's einsum: f32
@@ -966,20 +1295,26 @@ def main() -> int:
     dev = torch.device(DEVICE)
 
     # 2. build -------------------------------------------------------------
-    # both libraries side by side (every nvcc at once), each timed: the
-    # path's time is the cold start of a first render() or train step
+    # both libraries side by side (every nvcc at once) and the native PLY
+    # parser (the host C++ compiler), each timed: the path's time is the
+    # cold start of a first render() or train step
     t0 = time.perf_counter()
 
     def build(library):
-        path = (blend_fwd_variants.build_variant(library) if library == "baseline"
-                else kernels.build(library))
+        if library == "baseline":
+            path = blend_fwd_variants.build_variant(library)
+        elif library == "native":
+            path = native.build()
+        else:
+            path = kernels.build(library)
         return os.path.relpath(path, ROOT), time.perf_counter() - t0
 
-    libraries = tuple(kernels.SOURCES) + ("baseline",)
+    libraries = tuple(kernels.SOURCES) + ("baseline", "native")
     with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
         built = dict(zip(libraries, pool.map(build, libraries)))
     for library in kernels.SOURCES:
         kernels.lib(library)
+    native.lib()
     base_path = os.path.join(ROOT, built["baseline"][0])
     print(f"# build: {time.perf_counter() - t0:.2f} s; "
           + "; ".join(f"{library} library ready after {t:.2f} s -> {path}"
@@ -989,8 +1324,8 @@ def main() -> int:
     t0 = time.perf_counter()
     g = bonsai_like(n=N_SPLATS, seed=0, sh_degree=0, device=dev)
     cams = orbit_cameras(30, WIDTH, HEIGHT, device=dev)
-    cfg = gt.RenderConfig(backend="stream", chunk=128, fat_cap=FAT_CAP,
-                          fat_live_cap=LIVE_CAP)
+    cfg = gt.RenderConfig(backend="stream", chunk=128, fat_cap=R05_FAT_CAP,
+                          fat_live_cap=R05_LIVE_CAP)
     cfg_flat = dataclasses.replace(cfg, backend="pallas")
     configs = {"stream": cfg, "pallas": cfg_flat}
     torch.cuda.synchronize()
@@ -1006,7 +1341,7 @@ def main() -> int:
         nh = ph.depth.shape[0]
 
         src18, fb, fbe, n_copies = homesort.fat_repeat_inputs(p, tiles_x, tiles_y, cfg)
-        a_args = (src18, fb, fbe, n_copies, FAT_CAP, tiles_x, tiles_y,
+        a_args = (src18, fb, fbe, n_copies, R05_FAT_CAP, tiles_x, tiles_y,
                   cfg.tile_span, cfg.tile_size, cfg.alpha_min)
         tail_k, keys_k = homesort.repeat_fat_parents(*a_args)
         tail_k2, keys_k2 = homesort.repeat_fat_parents(*a_args)
@@ -1022,16 +1357,16 @@ def main() -> int:
         # the fat parents' rows (18 floats, fb, fbe, thr) read once, the
         # tail table and the 4 key rows written once; the earlier count
         # charged a 20-step search a slot and 8 key rows
-        bound_a = bound(nf * 21 * 4 + nbytes(tail_k, keys_k), OPS_PER_SLOT_A * FAT_CAP)
-        bound_a_old = bound(nf * 21 * 4 + nbytes(tail_k) + 8 * FAT_CAP * 4, 130 * FAT_CAP)
+        bound_a = bound(nf * 21 * 4 + nbytes(tail_k, keys_k), OPS_PER_SLOT_A * R05_FAT_CAP)
+        bound_a_old = bound(nf * 21 * 4 + nbytes(tail_k) + 8 * R05_FAT_CAP * 4, 130 * R05_FAT_CAP)
         print(f"# A repeat: fat parents {nf}, copy slots "
-              f"{int(n_copies)} of {FAT_CAP}, live copies {n_live_copies} of "
-              f"{LIVE_CAP}: bit-equal to the plain version, two launches bit-equal; "
+              f"{int(n_copies)} of {R05_FAT_CAP}, live copies {n_live_copies} of "
+              f"{R05_LIVE_CAP}: bit-equal to the plain version, two launches bit-equal; "
               f"bound {bound_a[0]:.4f} ms ({bound_a[1]}; the earlier count, with a "
               f"search a slot and 8 key rows: {bound_a_old[0]:.4f})")
         launch_a = (src18, fb, fbe,
                     homesort.cull_threshold(src18[:, 6], cfg.alpha_min).contiguous(),
-                    torch.as_tensor(n_copies, dtype=torch.int64, device=dev), FAT_CAP,
+                    torch.as_tensor(n_copies, dtype=torch.int64, device=dev), R05_FAT_CAP,
                     tiles_x, tiles_y, cfg.tile_span, cfg.tile_size)
         print(f"# A repeat: launch alone {cuda_ms(lambda: homesort.launch_repeat(*launch_a), 20):.4f} "
               f"ms (the wrapper adds the parents' cull thresholds)")
@@ -1547,6 +1882,25 @@ def main() -> int:
     t0 = time.perf_counter()
     lazy = lazy_phase(g, cams, cfg, dev, card, train["stream"])
     print(f"# lazy: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # 13. scene IO on the card at full size ----------------------------------
+    t0 = time.perf_counter()
+    scene_io = io_phase(cfg, cams[0].to(dev), dev, card)
+    print(f"# io: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # 14. autotune over bench.py's 30-view orbit: kernels A and B a view -----
+    t0 = time.perf_counter()
+    tuned = autotune_phase(g, cams, dev, card)
+    print(f"# autotune: {time.perf_counter() - t0:.2f} s")
+    del g
+    torch.cuda.empty_cache()
+
+    # 15. garden on the card: derived caps, a render, lazy steps -------------
+    t0 = time.perf_counter()
+    garden = garden_phase(dev, card)
+    print(f"# garden: {time.perf_counter() - t0:.2f} s")
 
     # A-F: kernel → the training run its launches are read from (A, B:
     # both); the probes G-J: their runs in phase 11
@@ -1573,7 +1927,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "result.json"), "w") as fh:
         json.dump(dict(card=card, kind=kind, kernels=results, frame_ms=frame_ms,
                        stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train,
-                       probes=probe_detail, lazy=lazy),
+                       probes=probe_detail, lazy=lazy, scene_io=scene_io, autotune=tuned,
+                       garden=garden),
                   fh, indent=1)
 
     print(json.dumps({"kernels": results}))

@@ -13,15 +13,33 @@ device the kernels run (built from gsjax_torch/csrc at first use); on the
 CPU their plain PyTorch versions do. Constructors put tensors on the card
 unless device="cpu" is passed. Never imports jax or gsjax.
 
-  Gaussians, Camera, RenderConfig, render, OrbitCamera,
+Scene IO and edits, as gsjax exports them: load_splat / save_splat
+(.splat), load_ply (plain 3DGS .ply through the native C++ parser,
+native/loader.cpp built at first use, or numpy; quantized=True the
+codebook layout; banded=True a BandedGaussians, whose groups keep their
+own SH degree and render through the same path), the streamed loaders
+load_ply_streamed / load_splat_streamed (progress callbacks, paths or
+byte streams), and `transforms` (translate, rotate, scale, limit_box,
+crop_box). Loaders parse on the host and put the scene's tensors on the
+card unless device="cpu" is passed. core/autotune.derive_caps sizes the
+fat-split and pair budgets from a measured pass (project, kernels A and
+B).
+
+  Gaussians, BandedGaussians, Camera, RenderConfig, render, OrbitCamera,
   render_trajectory, render_orbit, train, FramePlan, LazyTrainer,
-  build_frame_plan, lazy_render
+  build_frame_plan, lazy_render, load_splat, save_splat, load_ply,
+  load_ply_streamed, load_splat_streamed, transforms
 """
 
 from gsjax_torch.camera.orbit import OrbitCamera
+from gsjax_torch.core import transforms
+from gsjax_torch.core.banded import BandedGaussians
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.core.gaussians import Gaussians
+from gsjax_torch.io.ply import load_ply
+from gsjax_torch.io.splat import load_splat, save_splat
+from gsjax_torch.io.stream import load_ply_streamed, load_splat_streamed
 from gsjax_torch.render.lazy import FramePlan, LazyTrainer, build_frame_plan, lazy_render
 from gsjax_torch.render.pipeline import render
 from gsjax_torch.viewer import render_orbit, render_trajectory
@@ -40,4 +58,11 @@ __all__ = [
     "LazyTrainer",
     "build_frame_plan",
     "lazy_render",
+    "BandedGaussians",
+    "load_splat",
+    "save_splat",
+    "load_ply",
+    "load_ply_streamed",
+    "load_splat_streamed",
+    "transforms",
 ]

@@ -6,6 +6,7 @@ gsjax_torch.
     python -m gsjax_torch.bench.run --mode fixed         # fixed camera, black target
     python -m gsjax_torch.bench.run --mode fixed-lazy --frames 64 --resort-every 16
     python -m gsjax_torch.bench.run --backend pallas --mode orbit-exact  # flat kernels
+    python -m gsjax_torch.bench.run --scene garden       # 5M splats, SH degree 2
     python -m gsjax_torch.bench.run --quick --mode orbit --views 2 --device cpu
 
 orbit (the default, bench.py's headline): the clean bonsai-scale scene
@@ -23,19 +24,33 @@ picks the blend of the exact modes, as bench.py's flag does: stream
 F); the lazy modes need stream. --quick shrinks the scene (50,000 splats
 at 640×480 unless --n / --width / --height say otherwise) and keeps the
 mode (bench.py's --quick runs the fixed mode whatever --mode says; here
-every mode has a small run, for the CPU tests). Autotune is not ported,
-so the copy budgets come from --fat-cap / --fat-live-cap, by default the
-ones the reference's autotune measured for this orbit.
+every mode has a small run, for the CPU tests).
+
+--scene: bonsai (bonsai_like, 1.2M splats, SH degree 0; bench.py's
+headline) or garden (garden_like, 5M splats, SH degree 2: BASELINE's
+config-4 scale). Garden's targets are kept on the host as bf16 and
+uploaded one per view, as bench.py keeps them.
+
+The fat-split and pair budgets come from core/autotune.derive_caps over
+the run's cameras (sized for the worst view, bench.py's rule), measured
+at the base caps --fat-cap / --fat-live-cap (None: scaled with the
+scene); the runner prints bench.py's `# autotune` line. bench.py derives
+for its stream backend only, because the TPU's band scratch needs it;
+the port has no band scratch and its fat caps serve both blends, so it
+derives for pallas too. --no-autotune renders at --fat-cap /
+--fat-live-cap themselves.
 
 Prints one JSON line, bench.py's {"metric": "1080p_fwd_bwd_ms_per_frame",
-"value": ms, "unit": "ms", "mode": ..., "loss0": ..., ...} plus "device"
-(the card's name and power limit). There is no "vs_baseline": bench.py's
-divides by a TPU target.
+"value": ms, "unit": "ms", "mode": ..., "scene": ..., "loss0": ..., ...}
+plus "device" (the card's name and power limit) and "peak_gib" (the
+card's peak allocated memory; null on the CPU). There is no
+"vs_baseline": bench.py's divides by a TPU target.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,15 +60,15 @@ import numpy as np
 import torch
 
 from gsjax_torch.camera.orbit import OrbitCamera
+from gsjax_torch.core.autotune import derive_caps, measure_occupancy
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.core.gaussians import Gaussians
 from gsjax_torch.render.lazy import LazyTrainer
 from gsjax_torch.render.pipeline import render
-from gsjax_torch.bench.synth import bench_camera, bonsai_like
+from gsjax_torch.bench.synth import bench_camera, bonsai_like, garden_like
 from gsjax_torch.train import make_step_fn
 
 SWEEP_DEG = 30.0  # bench.py's default orbit sweep, ~1°/view at 30 views
-FAT_CAP, LIVE_CAP = 2_342_912, 1_617_920  # the reference's autotune, r05 orbit
 OVERFLOW_KEYS = ("n_pair_overflow", "n_band_overflow", "n_tile_overflow",
                  "n_fat_overflow", "n_clamped")
 
@@ -160,8 +175,17 @@ def main(argv=None) -> int:
                     help="default 1080 (480 with --quick)")
     ap.add_argument("--forward-only", action="store_true",
                     help="time the forward only")
-    ap.add_argument("--fat-cap", type=int, default=None)
-    ap.add_argument("--fat-live-cap", type=int, default=None)
+    ap.add_argument("--scene", default="bonsai", choices=["bonsai", "garden"],
+                    help="bonsai: 1.2M splats, SH degree 0 (the headline scene); "
+                    "garden: 5M splats, SH degree 2 (config-4 scale)")
+    ap.add_argument("--fat-cap", type=int, default=None,
+                    help="copy-enumeration budget: the measuring pass's base, or "
+                    "with --no-autotune the run's (default: scaled with the scene)")
+    ap.add_argument("--fat-live-cap", type=int, default=None,
+                    help="live copy rows: as --fat-cap")
+    ap.add_argument("--no-autotune", action="store_true",
+                    help="skip the occupancy pre-pass (core/autotune.derive_caps) "
+                    "and render at --fat-cap / --fat-live-cap")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="after the timed run, trace this many more steps at "
                     "view 0 (in the lazy modes lazy steps after a resort, then as "
@@ -182,27 +206,43 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    garden = args.scene == "garden"
     if args.quick:
         n, width, height = args.n or 50_000, args.width or 640, args.height or 480
-        caps = dict(fat_cap=args.fat_cap, fat_live_cap=args.fat_live_cap)
     else:
-        n, width, height = args.n or 1_200_000, args.width or 1920, args.height or 1080
-        caps = dict(fat_cap=args.fat_cap or FAT_CAP,
-                    fat_live_cap=args.fat_live_cap or LIVE_CAP)
-    cfg = RenderConfig(backend=args.backend, chunk=128, **caps)
-    g = bonsai_like(n=n, sh_degree=0, device=dev)
+        n = args.n or (5_000_000 if garden else 1_200_000)
+        width, height = args.width or 1920, args.height or 1080
+    cfg = RenderConfig(backend=args.backend, chunk=128, fat_cap=args.fat_cap,
+                       fat_live_cap=args.fat_live_cap)
+    if garden:
+        g = garden_like(n=n, sh_degree=2, device=dev)
+    else:
+        g = bonsai_like(n=n, sh_degree=0, device=dev)
     if mode in ("orbit", "orbit-exact"):
         cams = orbit_cameras(args.views, width, height, device=dev)
     else:
         cams = [bench_camera(width=width, height=height, device=dev)]
+    if not args.no_autotune:  # sized for the worst view of the run
+        _sync(dev)
+        t0 = time.perf_counter()
+        cfg = autotune(g, cams, cfg)
+        _sync(dev)
+        print(f"# autotune {time.perf_counter() - t0:.1f}s over {len(cams)} view(s): "
+              f"pair_cap={cfg.pair_cap} repack_w={cfg.repack_w} "
+              f"repack_rows={cfg.repack_rows} band_cap={cfg.stream_band_cap} "
+              f"blkw={cfg.stream_block_tiles} fat_cap={cfg.fat_cap} "
+              f"live_cap={cfg.fat_live_cap}", file=sys.stderr)
 
-    extra = {"mode": mode, "backend": args.backend, "scene": "bonsai"}
+    extra = {"mode": mode, "backend": args.backend, "scene": args.scene}
     if mode == "fixed":
         targets = [torch.zeros((height, width, 3), dtype=torch.float32, device=dev)]
         g_train = g
     else:
         with torch.no_grad():
-            targets = [render(g, cam, cfg) for cam in cams]
+            # garden keeps its targets on the host as bf16 (bench.py's
+            # rule: 30 device targets beside the 5M-splat home state)
+            targets = [render(g, cam, cfg).to("cpu", torch.bfloat16) if garden
+                       else render(g, cam, cfg) for cam in cams]
         black = float(torch.mean(targets[0].double() ** 2))
         print(f"# targets: {len(targets)} view renders; black-target loss of "
               f"view 0 = {black:.6f}", file=sys.stderr)
@@ -238,7 +278,8 @@ def main(argv=None) -> int:
     steps = [make_step(cam) for cam in cams]
 
     t0 = time.perf_counter()
-    loss = steps[0](g_train, targets[0])  # warm-up: kernel build, caches
+    tgt0 = on_device(targets[0], dev)
+    loss = steps[0](g_train, tgt0)  # warm-up: kernel build, caches
     loss0 = float(loss)
     print(f"# mode={mode} backend={args.backend} n={n} {width}x{height} on "
           f"{device_label(dev)}: "
@@ -249,23 +290,55 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if mode == "orbit-exact":
         for i, step in enumerate(steps):
-            loss = step(g_train, targets[i])
+            loss = step(g_train, on_device(targets[i], dev))
         extra.update(views=len(cams), sweep_deg=SWEEP_DEG)
         n_steps = len(cams)
     else:
         for _ in range(args.frames):
-            loss = steps[0](g_train, targets[0])
+            loss = steps[0](g_train, tgt0)
         extra.update(frames=args.frames)
         n_steps = args.frames
     final = float(loss)  # waits for the device
     ms = (time.perf_counter() - t0) / n_steps * 1e3
     extra.update(loss0=round(loss0, 5), final_loss=round(final, 5))
     if args.profile:
-        print(profile_steps(lambda: steps[0](g_train, targets[0]), args.profile, dev),
+        print(profile_steps(lambda: steps[0](g_train, tgt0), args.profile, dev),
               file=sys.stderr)
-    print(json.dumps({"metric": "1080p_fwd_bwd_ms_per_frame", "value": round(ms, 3),
-                      "unit": "ms", **extra, "device": device_label(dev)}))
+    print_result(ms, extra, dev)
     return 0
+
+
+def autotune(g: Gaussians, cams, cfg: RenderConfig) -> RenderConfig:
+    """derive_caps over `cams`, measured at cfg's fat caps. Where those
+    overflow (a scene whose splats are large for its count, as garden_like
+    is at a small n), the base grows to the measured copy demand (every
+    copy slot a live row) and the views are measured again; derive_caps
+    still raises if that pass overflows (fat_max_blocks)."""
+    ms = [measure_occupancy(g, c, cfg) for c in cams]
+    if any(m["n_fat_overflow"] for m in ms):
+        demand = -(-max(m["n_copies"] for m in ms) // 8192) * 8192
+        print(f"# autotune: the base fat caps overflowed "
+              f"({[m['n_fat_overflow'] for m in ms]}); measuring again at fat_cap = "
+              f"fat_live_cap = {demand}, the copy demand", file=sys.stderr)
+        base = dataclasses.replace(cfg, fat_cap=demand, fat_live_cap=demand)
+        ms = [measure_occupancy(g, c, base) for c in cams]
+    return derive_caps(g, cams, cfg, ms=ms)
+
+
+def on_device(target: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """A view's target as the loss reads it: float32 on the device (a
+    host-resident bf16 target uploads here; a device one passes as is)."""
+    return target.to(dev, torch.float32)
+
+
+def print_result(ms: float, extra: dict, dev: torch.device) -> None:
+    """bench.py's JSON line, with the card's name and power limit and its
+    peak allocated memory."""
+    peak = (round(torch.cuda.max_memory_allocated(dev) / 2**30, 3)
+            if dev.type == "cuda" else None)
+    print(json.dumps({"metric": "1080p_fwd_bwd_ms_per_frame", "value": round(ms, 3),
+                      "unit": "ms", **extra, "device": device_label(dev),
+                      "peak_gib": peak}))
 
 
 def clone(g: Gaussians) -> Gaussians:
@@ -278,7 +351,8 @@ def run_lazy(args, g, cams, cfg, targets, dev, extra) -> int:
     loss0, the first step's loss, which is the exact path's; a fresh
     trainer on g makes the timed run. orbit: a resort at each view, then
     --steps-per-view steps, the device synchronised every 8 views as
-    bench.py does; fixed-lazy: --frames steps at the bench camera, a
+    bench.py does (every view when the targets are on the host, each
+    uploaded at its view); fixed-lazy: --frames steps at the bench camera, a
     resort every --resort-every. Every resort's overflow counters must
     read 0. Prints bench.py's JSON line."""
     def adam(g):
@@ -287,10 +361,11 @@ def run_lazy(args, g, cams, cfg, targets, dev, extra) -> int:
     t0 = time.perf_counter()
     g_warm = clone(g)
     tr = LazyTrainer(g_warm, cfg, adam(g_warm))
+    tgt0 = on_device(targets[0], dev)
     tr.resort(cams[0])
-    loss0 = float(tr.step(targets[0], cams[0]))
+    loss0 = float(tr.step(tgt0, cams[0]))
     tr.resort(cams[0])  # the fold
-    tr.step(targets[0], cams[0])
+    tr.step(tgt0, cams[0])
     tr.sync()
     _sync(dev)
     del tr, g_warm
@@ -304,11 +379,13 @@ def run_lazy(args, g, cams, cfg, targets, dev, extra) -> int:
     t0 = time.perf_counter()
     if args.mode == "orbit":
         spv = args.steps_per_view
+        sync_every = 8 if targets[0].device.type == dev.type else 1
         for i, cam in enumerate(cams):
+            tgt = on_device(targets[i], dev)
             ovfs.append(tr.resort(cam).ovf)
             for _ in range(spv):
-                loss = tr.step(targets[i], cam)
-            if i % 8 == 7:
+                loss = tr.step(tgt, cam)
+            if i % sync_every == sync_every - 1:
                 _sync(dev)
         n_steps = len(cams) * spv
         extra.update(views=len(cams), steps_per_view=spv, sweep_deg=SWEEP_DEG,
@@ -318,7 +395,7 @@ def run_lazy(args, g, cams, cfg, targets, dev, extra) -> int:
         for s in range(args.frames):
             if s % k == 0:
                 ovfs.append(tr.resort(cams[0]).ovf)
-            loss = tr.step(targets[0], cams[0])
+            loss = tr.step(tgt0, cams[0])
         n_steps = args.frames
         extra.update(frames=n_steps, resort_every=k, loss0=round(loss0, 5))
     tr.sync()
@@ -329,13 +406,12 @@ def run_lazy(args, g, cams, cfg, targets, dev, extra) -> int:
     extra["final_loss"] = round(final, 5)
     if args.profile:  # lazy steps after a resort, then resorts (fold, plan, extract)
         tr.resort(cams[0])
-        print(profile_steps(lambda: tr.step(targets[0], cams[0]), args.profile, dev),
+        print(profile_steps(lambda: tr.step(tgt0, cams[0]), args.profile, dev),
               file=sys.stderr)
         print(profile_steps(lambda: tr.resort(cams[0]), args.profile, dev, unit="resort"),
               file=sys.stderr)
         tr.sync()
-    print(json.dumps({"metric": "1080p_fwd_bwd_ms_per_frame", "value": round(ms, 3),
-                      "unit": "ms", **extra, "device": device_label(dev)}))
+    print_result(ms, extra, dev)
     return 0
 
 

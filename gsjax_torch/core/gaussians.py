@@ -19,18 +19,39 @@ from torch import nn
 SH_C0 = 0.28209479177387814
 
 
+_SH_K_FOR_DEGREE = {0: 1, 1: 4, 2: 9, 3: 16}
+FIELDS = ("means", "log_scales", "quats", "sh", "opacity_logits")
+
+
 class Gaussians(nn.Module):
+    """Each field is an nn.Parameter (a leaf an optimizer steps), except a
+    tensor computed from other tensors under autograd, which is kept as
+    it is. A Parameter passed in is shared under autograd and copied under
+    torch.no_grad(). So a derived scene (with_sh_degree, pad_to, slice,
+    concat, core/transforms) stays differentiable back to its source's
+    parameters, as jax.grad reaches through gsjax's derived pytrees, and
+    one made under torch.no_grad() (an edit) holds parameters of its own."""
+
     def __init__(self, means, log_scales, quats, sh, opacity_logits):
         super().__init__()
-        self.means = nn.Parameter(means)
-        self.log_scales = nn.Parameter(log_scales)
-        self.quats = nn.Parameter(quats)
-        self.sh = nn.Parameter(sh)
-        self.opacity_logits = nn.Parameter(opacity_logits)
+        for name, t in zip(FIELDS, (means, log_scales, quats, sh, opacity_logits)):
+            if isinstance(t, nn.Parameter) and not torch.is_grad_enabled():
+                t = nn.Parameter(t.detach().clone())
+            elif not isinstance(t, nn.Parameter) and t.grad_fn is None:
+                t = nn.Parameter(t)
+            setattr(self, name, t)
 
     @property
     def device(self) -> torch.device:
         return self.means.device
+
+    @property
+    def n(self) -> int:
+        return self.means.shape[0]
+
+    @property
+    def sh_degree(self) -> int:
+        return {1: 0, 4: 1, 9: 2, 16: 3}[self.sh.shape[1]]
 
     # -- constructors -------------------------------------------------------
 
@@ -85,6 +106,53 @@ class Gaussians(nn.Module):
     def rotation_matrices(self) -> torch.Tensor:
         """[N, 3, 3] rotation matrices from normalized (w,x,y,z) quats."""
         return quat_to_rotmat(self.normalized_quats())
+
+    def covariances(self) -> torch.Tensor:
+        """[N, 3, 3] world-space covariances Σ = M Mᵀ, M = R·diag(S)."""
+        M = self.rotation_matrices() * self.scales[:, None, :]
+        return M @ M.transpose(-1, -2)
+
+    # -- shape utilities ----------------------------------------------------
+
+    def _fields(self):
+        return [getattr(self, f) for f in FIELDS]
+
+    def with_sh_degree(self, degree: int) -> "Gaussians":
+        """Zero-pad or truncate the SH coefficients to `degree`."""
+        k = _SH_K_FOR_DEGREE[degree]
+        cur = self.sh.shape[1]
+        if cur == k:
+            return self
+        if cur > k:
+            sh = self.sh[:, :k].clone()
+        else:
+            sh = torch.cat([self.sh, self.sh.new_zeros((self.n, k - cur, 3))], dim=1)
+        return Gaussians(self.means, self.log_scales, self.quats, sh, self.opacity_logits)
+
+    def pad_to(self, n: int) -> "Gaussians":
+        """Pad with fully transparent splats (static-shape batching)."""
+        if n < self.n:
+            raise ValueError(f"pad_to({n}) < n={self.n}")
+        extra = n - self.n
+        if extra == 0:
+            return self
+
+        def pad(x, fill=0.0):
+            return torch.cat([x, x.new_full((extra,) + tuple(x.shape[1:]), fill)])
+
+        quats = torch.cat([self.quats, self.quats.new_tensor([1.0, 0.0, 0.0, 0.0])
+                           .expand(extra, 4)])
+        return Gaussians(pad(self.means), pad(self.log_scales, -10.0), quats,
+                         pad(self.sh), pad(self.opacity_logits, -30.0))
+
+    def slice(self, start: int, stop: int) -> "Gaussians":
+        return Gaussians(*(x[start:stop].clone() for x in self._fields()))
+
+    def concat(self, other: "Gaussians") -> "Gaussians":
+        if self.sh.shape[1] != other.sh.shape[1]:
+            d = max(self.sh_degree, other.sh_degree)
+            return self.with_sh_degree(d).concat(other.with_sh_degree(d))
+        return Gaussians(*(torch.cat([a, b]) for a, b in zip(self._fields(), other._fields())))
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

@@ -45,14 +45,14 @@ import torch
 
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
-from gsjax_torch.core.gaussians import Gaussians
+from gsjax_torch.core.gaussians import FIELDS, Gaussians
 from gsjax_torch.render.binning import build_tile_bins
 from gsjax_torch.render.composite import assemble_band, clipped_pair_stream
 from gsjax_torch.render.homesort import build_home_layout, reduce_copy_segments
+from gsjax_torch.render.pipeline import _project_any
 from gsjax_torch.render.project import project
 from gsjax_torch.render.stream import blend_stream
 
-FIELDS = ("means", "log_scales", "quats", "sh", "opacity_logits")
 #: the widest column group the extract and fold passes pack at once: the
 #: peak memory of either is one group's [NH, ≤ 64] temporaries
 GROUP_COLS = 64
@@ -102,7 +102,7 @@ def build_frame_plan(g: Gaussians, cam: Camera, cfg: RenderConfig) -> FramePlan:
         raise ValueError("frame plans require exact footprints (footprint_clamp=False)")
     cam = cam.to(g.device)
     with torch.no_grad():
-        p = project(g, cam, cfg)
+        p = _project_any(g, cam, cfg)
         ph, layout, extras = build_home_layout(p, cam, cfg, return_extras=True)
         bins = build_tile_bins(ph, cam, cfg, anchor="home", layout=layout)
         pid, starts, n_dropped = clipped_pair_stream(bins, cfg)

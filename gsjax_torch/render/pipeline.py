@@ -44,6 +44,16 @@ def _resolve_backend(cfg: RenderConfig) -> str:
     return backend
 
 
+def _project_any(g, cam: Camera, cfg: RenderConfig):
+    """project() for Gaussians or BandedGaussians (core/banded.py: each
+    group evaluates only its own SH degree)."""
+    from gsjax_torch.core.banded import BandedGaussians, project_banded
+
+    if isinstance(g, BandedGaussians):
+        return project_banded(g, cam, cfg)
+    return project(g, cam, cfg)
+
+
 def render(g: Gaussians, cam: Camera, cfg: RenderConfig = RenderConfig(),
            return_aux: bool = False, passes=()):
     """Render an [H, W, 3] image on the device of `g`'s tensors (the
@@ -51,7 +61,8 @@ def render(g: Gaussians, cam: Camera, cfg: RenderConfig = RenderConfig(),
     Gaussians field: autograd through projection and SH, the home
     gather's VJP (copy rows of fat splats sum onto their parents) and
     the blend's hand-written backward (kernel D, or F with the flat
-    backend, on the card). `passes` (post-projection transforms) are not
+    backend, on the card). `g` may be a BandedGaussians (each group
+    projected at its own SH degree). `passes` (post-projection transforms) are not
     ported yet and must be empty."""
     backend = _resolve_backend(cfg)
     if passes:
@@ -64,7 +75,7 @@ def render(g: Gaussians, cam: Camera, cfg: RenderConfig = RenderConfig(),
             "waits for ROADMAP queue 1 'oracle + xla backend'"
         )
     cam = cam.to(g.device)
-    p = project(g, cam, cfg)
+    p = _project_any(g, cam, cfg)
     p, layout = build_home_layout(p, cam, cfg)
     bins = build_tile_bins(p, cam, cfg, anchor="home", layout=layout)
     if backend == "stream":

@@ -43,6 +43,11 @@ import torch
 
 from gsjax_torch import kernels
 
+#: the copy budgets of the bonsai 1080p orbit: derive_caps over its 30 views
+#: gives them (as the reference autotune did, BENCH_r05.json); the variant
+#: tools measure at them, as chip_smoke.py's phases 1-12 do
+BONSAI_ORBIT_CAPS = dict(fat_cap=2_342_912, fat_live_cap=1_617_920)
+
 REPLAYS = 10  # graph replays per device timing
 
 

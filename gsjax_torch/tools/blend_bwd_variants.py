@@ -32,7 +32,8 @@ import re
 import torch
 
 from gsjax_torch import kernels
-from gsjax_torch.tools import build_edited, card_line, edit, loaded, ptxas_kernels
+from gsjax_torch.tools import (BONSAI_ORBIT_CAPS, build_edited, card_line, edit, loaded,
+                               ptxas_kernels)
 
 VARIANTS = ("4x2,2x2,8x2,4x1,2x4,4x4,4x2+no-reduce,4x2+no-grad,"
             "4x2+no-grad+no-reduce,4x2+no-stop")
@@ -83,7 +84,7 @@ def view0_inputs(dev, perturbed: bool = True):
     at view 0 of the bonsai 1080p orbit (the perturbed scene of the
     training runs, or with perturbed=False the served one; seeded
     cotangents)."""
-    from gsjax_torch.bench.run import FAT_CAP, LIVE_CAP, orbit_cameras, perturb
+    from gsjax_torch.bench.run import orbit_cameras, perturb
     from gsjax_torch.bench.synth import bonsai_like
     from gsjax_torch.core.config import RenderConfig
     from gsjax_torch.render import flat, stream
@@ -95,7 +96,7 @@ def view0_inputs(dev, perturbed: bool = True):
     g = bonsai_like(n=1_200_000, seed=0, sh_degree=0, device=dev)
     g = perturb(g) if perturbed else g
     cam = orbit_cameras(30, 1920, 1080, device=dev)[0]
-    cfg = RenderConfig(chunk=128, fat_cap=FAT_CAP, fat_live_cap=LIVE_CAP)
+    cfg = RenderConfig(chunk=128, **BONSAI_ORBIT_CAPS)
     cfg_flat = dataclasses.replace(cfg, backend="pallas")
     tiles_x, tiles_y = cfg.tiles_x(cam.width), cfg.tiles_y(cam.height)
     with torch.no_grad():

@@ -32,7 +32,8 @@ import re
 import torch
 
 from gsjax_torch import kernels
-from gsjax_torch.tools import build_edited, card_line, edit, loaded, ptxas_kernels
+from gsjax_torch.tools import (BONSAI_ORBIT_CAPS, build_edited, card_line, edit, loaded,
+                               ptxas_kernels)
 
 # kernel → its source, and its ablations: name → [(regex, replacement,
 # matches expected)]. A variant is a kernel and its ablations joined by
@@ -114,7 +115,7 @@ def ms(fn, reps: int) -> float:
 def view0(dev):
     """(projected splats, home rows, layout, camera, cfg) at view 0 of the
     bonsai 1080p orbit, served scene."""
-    from gsjax_torch.bench.run import FAT_CAP, LIVE_CAP, orbit_cameras
+    from gsjax_torch.bench.run import orbit_cameras
     from gsjax_torch.bench.synth import bonsai_like
     from gsjax_torch.core.config import RenderConfig
     from gsjax_torch.render.homesort import build_home_layout
@@ -122,7 +123,7 @@ def view0(dev):
 
     g = bonsai_like(n=1_200_000, seed=0, sh_degree=0, device=dev)
     cam = orbit_cameras(30, 1920, 1080, device=dev)[0]
-    cfg = RenderConfig(chunk=128, fat_cap=FAT_CAP, fat_live_cap=LIVE_CAP)
+    cfg = RenderConfig(chunk=128, **BONSAI_ORBIT_CAPS)
     p = project(g, cam, cfg)
     ph, layout = build_home_layout(p, cam, cfg)
     return p, ph, layout, cam, cfg

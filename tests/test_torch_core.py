@@ -116,14 +116,18 @@ def test_fexp_within_one_ulp():
 
 
 def test_package_imports_no_jax():
-    """Importing every gsjax_torch module leaves no jax / gsjax module
-    loaded (fresh interpreter: the test process itself has jax)."""
+    """Importing every gsjax_torch module, and building and loading the
+    native PLY parser, leaves no jax / gsjax module loaded (fresh
+    interpreter: the test process itself has jax)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import importlib, pkgutil, sys\n"
         "import gsjax_torch\n"
         "for m in pkgutil.walk_packages(gsjax_torch.__path__, 'gsjax_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    print('walked', m.name)\n"
+        "import gsjax_torch.io.native as native\n"
+        "native.lib()\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'gsjax'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -132,6 +136,10 @@ def test_package_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    walked = {line.split()[1] for line in res.stdout.splitlines() if line.startswith("walked")}
+    for m in ("io.native", "io.ply", "io.qply", "io.splat", "io.stream", "core.autotune",
+              "core.banded", "core.transforms"):
+        assert f"gsjax_torch.{m}" in walked, m
 
 
 def test_unported_paths_raise(rng):

@@ -157,7 +157,36 @@ Phases (any failure exits non-zero; there is no CPU path):
                render: two resorts (A, B once each, overflow 0), each
                followed by 16 lazy steps launching C, D, D's class sum once
                a step and nothing else; the loss falls; ms per lazy step,
-               per resort, NH and the peak device memory.
+               per resort, NH and the peak device memory;
+ 16. reference — the oracle and xla backends (plain PyTorch on the card;
+               TF32 must be off) against stream and pallas on a 2,000-
+               splat SH-3 scene at 256×192, exact mode, forward and
+               backward, the counters zeroed before each and read after
+               (xla: A and B once, C-F never; the oracle: nothing): each
+               image within 1e-4 of the oracle's, xla's gradients (every
+               field and camera leaf) against stream's and pallas's within
+               1e-4 (p99.9) and 1e-1 (max) of each leaf's peak; BASELINE
+               config 2's finite-difference check on a 64×64 crop at SH
+               degree 3 through oracle and xla; xla beside stream at
+               bench.py's --quick size (50,000 splats, 640×480, tile list
+               cap 512), forward and forward + backward;
+ 17. legacy  — footprint_clamp=True at the --quick size, forward and
+               backward: stream (C, D, D' once; A, B never) and pallas (E,
+               F once) against xla's plain blend, images under C's gate,
+               gradients under 16's bounds, n_clamped of xla and pallas
+               equal and > 0 and stream's the same count over the splats
+               its legacy layout keeps; pallas against xla at tile_span
+               9; C-F timed on the clamped bins;
+ 18. viewer  — the reference's main loop at full width: bonsai 1080p,
+               72 frames of scripted control events (drag, right-button
+               pan, wheel, keys, SetCameraTarget, a set_camera freeze)
+               through controls.apply_event, update and to_camera into
+               render_trajectory(fade_in=True, fade_speed=4.0) on the
+               stream backend: A, B, C once a frame and nothing else;
+               moving frames differ, still ones bit-equal, the last frame
+               bit-equal to render() of its camera, overflow 0 at every
+               camera, the cameras bit-equal through camera JSON; ms a
+               frame (the fade's frames apart) and frames per second.
 Prints the kernels' JSON line (A-J and D's class sum, each with its
 time, its plain version's, its bound and its launches: A-F in their
 path's training run,
@@ -198,12 +227,28 @@ R05_FAT_CAP, R05_LIVE_CAP = 2_342_912, 1_617_920
 R05_PAIR_CAP, R05_REPACK_ROWS = 11_353_088, 1_016
 IO_SPLATS, IO_SH_DEGREE = 1_200_000, 3  # phase 13: bonsai_like written and read back
 GARDEN_SPLATS, GARDEN_SH_DEGREE, GARDEN_VIEWS = 5_000_000, 2, 4  # phase 15
+# phase 16: the reference backends' scene (H·W·N = 98,304,000 elements in
+# each of the oracle's [H, W, N] tensors) and BASELINE config 2's
+# finite-difference check (a 64×64 crop at SH degree 3)
+REF_SPLATS, REF_SIZE, FD_SPLATS, FD_SIZE = 2000, (256, 192), 2, (64, 64)
+QUICK_SPLATS, QUICK_SIZE = 50_000, (640, 480)  # bench.py's --quick (phases 16, 17)
+QUICK_LIST_CAP = 512  # bench.py's --quick tile_list_cap for the xla backend
+ORACLE_TOL = 1e-4  # gsjax's verify recipe: each backend's image within 1e-4 of the oracle's
+# a backend's gradient against xla's, per leaf, |Δ| over the leaf's peak:
+# the 99.9th percentile, and the most (a pixel's include set may flip near
+# eps between a kernel's sequential product and torch's cumprod)
+GRAD_REL_P999, GRAD_REL_MAX = 1e-4, 1e-1
+FD_ABS, FD_REL, FD_EPS = 2e-4, 2e-2, 1e-3  # tests/test_render.py's finite differences
+CAM_LEAVES = ("position", "quat", "fx", "fy")
+VIEWER_FRAMES, FADE_SPEED = 72, 4.0  # phase 18: the fade reaches 1 at frame ~25
 FLAT_FIXED_STEPS = 4
 # the kernels each path launches (LAUNCHES keys) serving, and besides
 # those when training
 SERVE_KERNELS = {"stream": ("repeat", "expand", "stream_fwd"),
-                 "pallas": ("repeat", "expand", "slots_fwd")}
-TRAIN_KERNELS = {"stream": ("stream_bwd", "stream_class_sum"), "pallas": ("slots_bwd",)}
+                 "pallas": ("repeat", "expand", "slots_fwd"),
+                 "xla": ("repeat", "expand"), "oracle": ()}  # plain-PyTorch blends
+TRAIN_KERNELS = {"stream": ("stream_bwd", "stream_class_sum"), "pallas": ("slots_bwd",),
+                 "xla": (), "oracle": ()}
 # G-J (LAUNCHES keys = kernel-line names), on no path: phase 11 only
 PROBE_KERNELS = ("probe_mosaic", "probe_compact", "probe_scalars", "probe_chunk")
 # J variants whose work is a zero-trip loop and an untaken branch: their
@@ -270,9 +315,10 @@ EDGE_CASES = (
 )
 
 
-def small_scene(rng, n, spread, z_range, log_scale_boost=0.0):
+def small_scene(rng, n, spread, z_range, log_scale_boost=0.0, sh_degree=1):
     """A random scene in front of a camera at the origin looking down +z
-    (the CPU tests' make_random_scene, on the CPU, SH degree 1)."""
+    (the CPU tests' make_random_scene, on the CPU, SH degree 1 unless
+    told)."""
     import numpy as np
 
     from gsjax_torch import Gaussians
@@ -283,7 +329,7 @@ def small_scene(rng, n, spread, z_range, log_scale_boost=0.0):
     scales = rng.uniform(0.02, 0.12, (n, 3)) * np.exp(log_scale_boost)
     quats = rng.normal(size=(n, 4))
     quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    sh = rng.normal(size=(n, 4, 3)) * 0.3
+    sh = rng.normal(size=(n, (sh_degree + 1) ** 2, 3)) * 0.3
     sh[:, 0, :] = rng.uniform(-0.5, 1.5, (n, 3))
     return Gaussians.from_activated(means=means, scales=scales, quats=quats,
                                     opacities=rng.uniform(0.3, 0.95, n), sh=sh,
@@ -1256,6 +1302,479 @@ def garden_phase(dev, card) -> dict:
                 peak_gib=peak, tune_s=tune_s)
 
 
+def leaf_grads(g, cam) -> dict:
+    """The gradients of a Gaussians' fields and a camera's leaves, by name."""
+    out = {f: getattr(g, f).grad for f in RAW_FIELDS}
+    out.update({f"cam.{f}": getattr(cam, f).grad for f in CAM_LEAVES})
+    return out
+
+
+def grad_camera(cam):
+    """`cam` with its position, quat, fx and fy as fresh leaves that
+    require grad."""
+    return dataclasses.replace(cam, **{f: getattr(cam, f).detach().clone().requires_grad_()
+                                       for f in CAM_LEAVES})
+
+
+def rel_to_peak(a, ref) -> tuple:
+    """(p99.9, max) of |a − ref| over ref's peak."""
+    import torch
+
+    rel = ((a - ref).abs() / ref.abs().max().clamp(min=1e-30)).flatten().float()
+    return float(torch.quantile(rel, 0.999)), float(rel.max())
+
+
+def host_ms(fn, reps: int) -> list:
+    """Host-clock ms of fn over `reps` calls after one warm-up, each
+    synchronised on both sides."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def reference_phase(dev, card) -> dict:
+    """16. The reference backends on the card. A small scene (REF_SPLATS
+    splats at SH degree 3, REF_SIZE) rendered exact through oracle, xla,
+    stream and pallas, forward and backward, the counters zeroed before
+    each and read after (xla: A and B once, C-F never; the oracle: no
+    kernel): each image within ORACLE_TOL of the oracle's, overflow 0;
+    xla's gradients (every field and the camera's) against stream's and
+    pallas's within GRAD_REL_P999 / GRAD_REL_MAX of each leaf's peak;
+    BASELINE config 2's finite-difference check on a FD_SIZE crop at SH
+    degree 3 through oracle and xla (tests/test_render.py's smooth config
+    and gate); xla and stream timed at bench.py's --quick size, forward
+    and forward + backward. TF32 must be off."""
+    import numpy as np
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import kernels
+    from gsjax_torch.bench.synth import bench_camera, bonsai_like
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: the reference blends' products must run in fp32")
+    w, h = REF_SIZE
+    rng = np.random.default_rng(16)
+    raw = [getattr(small_scene(rng, REF_SPLATS, 1.3, (3.0, 9.0), sh_degree=3), f)
+           .detach().numpy() for f in RAW_FIELDS]
+    tgt = torch.from_numpy(rng.uniform(0, 1, (h, w, 3)).astype(np.float32)).to(dev)
+    cam0 = gt.Camera.create(position=(0.05, -0.04, 0.03), quat=(0.9995, 0.02, -0.03, 0.015),
+                            fx=150.0, fy=150.0, width=w, height=h, device=dev)
+    kw = dict(chunk=128, background=(0.2, 0.3, 0.5))
+    cfgs = {"oracle": gt.RenderConfig(backend="oracle", **kw),
+            "xla": gt.RenderConfig(backend="xla", tile_list_cap=QUICK_LIST_CAP, **kw),
+            "stream": gt.RenderConfig(backend="stream", **kw),
+            "pallas": gt.RenderConfig(backend="pallas", **kw)}
+    imgs, grads, info = {}, {}, {}
+    for backend, cfg in cfgs.items():
+        g = gt.Gaussians.from_numpy(*raw, device=dev)
+        cam = grad_camera(cam0)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        img, aux = gt.render(g, cam, cfg, return_aux=True)
+        torch.mean((img - tgt) ** 2).backward()
+        torch.cuda.synchronize()
+        check_launches(dict(kernels.LAUNCHES), backend, 1, train=True)
+        imgs[backend], grads[backend] = img.detach(), leaf_grads(g, cam)
+        ovf = ovf_of(aux)
+        check(not any(ovf.values()), f"reference {backend}: overflow {ovf}")
+        for k, t in grads[backend].items():
+            check(t is not None and bool(torch.isfinite(t).all()) and bool((t != 0).any()),
+                  f"reference {backend}: gradient of {k} missing, non-finite or zero")
+        info[backend] = dict(n_pairs=int(aux.get("n_pairs", -1)), ovf=ovf)
+    d_img = {b: float((imgs[b] - imgs["oracle"]).abs().max()) for b in cfgs if b != "oracle"}
+    print(f"# reference backends on {card}: {REF_SPLATS} splats at SH degree 3, {w}x{h}, "
+          f"exact; max |image - oracle's| {_fmt(d_img, 9)} (gate {ORACLE_TOL}); pairs "
+          f"{ {b: i['n_pairs'] for b, i in info.items() if b != 'oracle'} }; launches "
+          f"(forward + backward) xla A, B once, C-F never; oracle none")
+    for b, d in d_img.items():
+        check(d <= ORACLE_TOL, f"reference {b}: max |Δ| {d} from the oracle's image")
+    g_rel = {}
+    for b in ("stream", "pallas", "oracle"):
+        g_rel[b] = {k: rel_to_peak(grads[b][k], grads["xla"][k]) for k in grads["xla"]}
+        print(f"# reference gradients, {b} against xla (p99.9, max) |Δ|/peak: "
+              f"{ {k: (f'{x:.1e}', f'{y:.1e}') for k, (x, y) in g_rel[b].items()} }")
+    for b in ("stream", "pallas"):
+        for k, (p999, mx) in g_rel[b].items():
+            check(p999 <= GRAD_REL_P999 and mx <= GRAD_REL_MAX,
+                  f"reference gradients: {b} {k} against xla p99.9 {p999:.2e}, max {mx:.2e}")
+    del imgs, grads
+
+    # BASELINE config 2: finite differences on a 64×64 crop at SH degree 3
+    fw, fh = FD_SIZE
+    rng = np.random.default_rng(2)
+    raw_fd = [torch.from_numpy(np.asarray(getattr(small_scene(
+        rng, FD_SPLATS, 0.1, (4.5, 5.5), log_scale_boost=0.5, sh_degree=3), f).detach()
+        .numpy(), np.float32)).to(dev) for f in RAW_FIELDS]
+    cam_fd = gt.Camera.create(fx=100.0, fy=100.0, width=fw, height=fh, device=dev)
+    smooth = dict(alpha_min=0.0, transmittance_eps=0.0, radius_sigma=5.0, chunk=32)
+    fd_out = {}
+    for backend, cfg in (("oracle", gt.RenderConfig(backend="oracle", **smooth)),
+                         ("xla", gt.RenderConfig(backend="xla", tile_list_cap=256,
+                                                 **smooth))):
+        def loss_of(params):
+            return torch.mean((gt.render(gt.Gaussians(*params), cam_fd, cfg) - 0.25) ** 2)
+
+        # Parameters: Gaussians keeps them as they are under autograd
+        leaves = [torch.nn.Parameter(t.clone()) for t in raw_fd]
+        ga = torch.autograd.grad(loss_of(leaves), leaves)
+        worst, n_el = 0.0, 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for ai, (a, gai) in enumerate(zip(raw_fd, ga)):
+                for j in range(a.numel()):
+                    lp = [t.clone() for t in raw_fd]
+                    lm = [t.clone() for t in raw_fd]
+                    lp[ai].view(-1)[j] += FD_EPS
+                    lm[ai].view(-1)[j] -= FD_EPS
+                    fd = (float(loss_of(lp)) - float(loss_of(lm))) / (2 * FD_EPS)
+                    an = float(gai.view(-1)[j])
+                    err = abs(an - fd) / (FD_ABS + FD_REL * abs(fd))
+                    worst, n_el = max(worst, err), n_el + 1
+                    check(err <= 1.0, f"finite differences ({backend}): {RAW_FIELDS[ai]}[{j}] "
+                          f"analytic {an:.6e} against {fd:.6e}")
+        fd_out[backend] = dict(elements=n_el, worst=worst, s=time.perf_counter() - t0)
+    print(f"# finite differences on {card} (BASELINE config 2: {FD_SPLATS} splats at SH degree "
+          f"3 on a {fw}x{fh} crop, alpha_min 0, transmittance_eps 0, radius_sigma 5; eps "
+          f"{FD_EPS}, gate |analytic - fd| <= {FD_ABS} + {FD_REL}·|fd|): worst share of the "
+          f"gate {_fmt({b: r['worst'] for b, r in fd_out.items()})} over "
+          f"{fd_out['xla']['elements']} elements each")
+
+    # bench.py's --quick size: xla beside stream, forward and forward + backward
+    qw, qh = QUICK_SIZE
+    gq = bonsai_like(n=QUICK_SPLATS, seed=0, sh_degree=0, device=dev)
+    camq = bench_camera(width=qw, height=qh, device=dev)
+    tq = torch.zeros((qh, qw, 3), dtype=torch.float32, device=dev)
+    quick = {}
+    for backend in ("xla", "stream"):
+        cfg = gt.RenderConfig(backend=backend, chunk=128, tile_list_cap=QUICK_LIST_CAP)
+        with torch.no_grad():
+            aux = gt.render(gq, camq, cfg, return_aux=True)[1]
+        check(not any(ovf_of(aux).values()), f"quick {backend}: overflow {ovf_of(aux)}")
+
+        def fwd_bwd():
+            gq.zero_grad(set_to_none=True)
+            torch.mean((gt.render(gq, camq, cfg) - tq) ** 2).backward()
+
+        with torch.no_grad():
+            fwd = host_ms(lambda: gt.render(gq, camq, cfg), 5)
+        quick[backend] = dict(fwd_ms=statistics.median(fwd), fwd_bwd_ms=statistics.median(
+            host_ms(fwd_bwd, 5)), pairs=int(aux["n_pairs"]))
+    print(f"# xla at bench.py's --quick size on {card} ({QUICK_SPLATS} splats, {qw}x{qh}, "
+          f"tile_list_cap {QUICK_LIST_CAP}, chunk 128, overflow 0; median of 5, host clock "
+          f"synchronised): xla forward {quick['xla']['fwd_ms']:.3f} ms, forward + backward "
+          f"{quick['xla']['fwd_bwd_ms']:.3f}; stream {quick['stream']['fwd_ms']:.3f} / "
+          f"{quick['stream']['fwd_bwd_ms']:.3f}")
+    return dict(image_max_diff=d_img, grad_rel=g_rel, fd=fd_out, quick=quick, info=info)
+
+
+def legacy_phase(dev, card) -> dict:
+    """17. Legacy mode (footprint_clamp=True) at bench.py's --quick size:
+    perturb(g) against the clean scene's exact render through xla (the
+    plain padded-list blend), stream (kernels C, D on the legacy home
+    layout) and pallas (E, F on the rect-anchored bins of the splats
+    themselves), forward and backward, the counters zeroed before each
+    and read after (stream: C, D and D's class sum once; pallas: E, F
+    once; A and B never; xla: none); images against xla's under C's gate,
+    gradients under GRAD_REL_P999 / GRAD_REL_MAX, n_clamped of xla and
+    pallas equal and > 0, stream's the same count over the splats its
+    legacy layout keeps (within two tiles of the image, gsjax's rule);
+    then pallas against xla at tile_span 9 (gsjax's golden flat
+    configuration); and C-F's times on the clamped bins."""
+    import numpy as np
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import kernels
+    from gsjax_torch.bench.run import perturb
+    from gsjax_torch.bench.synth import bench_camera, bonsai_like
+    from gsjax_torch.render import flat, stream
+    from gsjax_torch.render.binning import build_tile_bins, span_clamped_pairs
+    from gsjax_torch.render.composite import assemble_band, att_table, clipped_pair_stream
+    from gsjax_torch.render.homesort import _legacy_home, build_home_layout
+    from gsjax_torch.render.project import project
+
+    qw, qh = QUICK_SIZE
+    g = bonsai_like(n=QUICK_SPLATS, seed=0, sh_degree=0, device=dev)
+    cam0 = bench_camera(width=qw, height=qh, device=dev)
+    with torch.no_grad():
+        target = gt.render(g, cam0, gt.RenderConfig(chunk=128))
+    raw = [getattr(perturb(g), f).detach() for f in RAW_FIELDS]
+    out = {}
+    for span in (3, 9):
+        backends = ("xla", "stream", "pallas") if span == 3 else ("xla", "pallas")
+        imgs, grads, clamped = {}, {}, {}
+        for backend in backends:
+            cfg = gt.RenderConfig(backend=backend, chunk=128, tile_list_cap=QUICK_LIST_CAP,
+                                  footprint_clamp=True, tile_span=span)
+            gg = gt.Gaussians(*[t.clone() for t in raw])
+            cam = grad_camera(cam0)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            img, aux = gt.render(gg, cam, cfg, return_aux=True)
+            torch.mean((img - target) ** 2).backward()
+            torch.cuda.synchronize()
+            # the blend's kernels once; no layout kernel (A, B) in legacy mode
+            want = {k: 1 for k in SERVE_KERNELS[backend] + TRAIN_KERNELS[backend]
+                    if k not in ("repeat", "expand")}
+            check(nonzero(kernels.LAUNCHES) == want, f"legacy {backend} span {span}: "
+                  f"forward + backward launched {nonzero(kernels.LAUNCHES)}, want {want}")
+            check(not any(ovf_of(aux).values()), f"legacy {backend}: overflow {ovf_of(aux)}")
+            imgs[backend], grads[backend] = img.detach(), leaf_grads(gg, cam)
+            clamped[backend] = int(aux["n_clamped"])
+        rows = {}
+        for backend in backends[1:]:
+            p999, mx, ok = c_gate(imgs[backend], imgs["xla"])
+            g_rel = {k: rel_to_peak(grads[backend][k], grads["xla"][k]) for k in grads["xla"]}
+            rows[backend] = dict(img=(p999, mx), grad=g_rel)
+            print(f"# legacy span {span}, {backend} against xla on {card}: image p99.9 / max "
+                  f"|Δ| {p999:.2e} / {mx:.2e}; gradients (p99.9, max) |Δ|/peak "
+                  f"{ {k: (f'{x:.1e}', f'{y:.1e}') for k, (x, y) in g_rel.items()} }")
+            check(ok, f"legacy span {span} {backend}: image against xla {p999}, {mx}")
+            for k, (x, y) in g_rel.items():
+                check(x <= GRAD_REL_P999 and y <= GRAD_REL_MAX,
+                      f"legacy span {span} {backend}: gradient {k} against xla {x:.2e}, {y:.2e}")
+        # stream bins the legacy home rows, whose liveness drops the splats
+        # more than two tiles outside the image (homesort._legacy_home), so
+        # its count is the rect count over those splats, as in gsjax
+        note = ""
+        if "stream" in clamped:
+            cfg = gt.RenderConfig(chunk=128, footprint_clamp=True, tile_span=span)
+            with torch.no_grad():
+                p = project(gt.Gaussians(*[t.clone() for t in raw]), cam0, cfg)
+                on = _legacy_home(p, cfg.tiles_x(qw), cfg.tiles_y(qh), cfg)[2]
+                on_count = int(span_clamped_pairs(
+                    dataclasses.replace(p, valid=on), cfg, "rect", 0, cfg.tiles_y(qh),
+                    cfg.tiles_x(qw), cfg.tiles_y(qh))[2])
+            note = (f"; stream's the same count over the splats within two tiles of the "
+                    f"image: {on_count}")
+            check(clamped["stream"] == on_count, f"legacy span {span}: stream's n_clamped "
+                  f"{clamped['stream']}, want {on_count}")
+        print(f"# legacy span {span}: n_clamped {clamped} (xla and pallas equal, > 0{note}); "
+              "launches (forward + backward) stream C, D, D' once, pallas E, F once, A and B "
+              "never")
+        check(clamped["pallas"] == clamped["xla"] > 0, f"legacy span {span}: n_clamped "
+              f"{clamped}")
+        out[span] = dict(rows=rows, n_clamped=clamped)
+
+    # C-F on the clamped bins (the kernel wrappers alone, between CUDA events)
+    cfg = gt.RenderConfig(chunk=128, footprint_clamp=True)
+    tiles_x, tiles_y = cfg.tiles_x(qw), cfg.tiles_y(qh)
+    gg = gt.Gaussians(*[t.clone() for t in raw])
+    with torch.no_grad():
+        p = project(gg, cam0, cfg)
+        ph, layout = build_home_layout(p, cam0, cfg)
+        bins_s = build_tile_bins(ph, cam0, cfg, anchor="home", layout=layout)
+        bins_f = build_tile_bins(p, cam0, cfg)
+    times = {}
+    for name, pp, bins in (("stream", ph, bins_s), ("pallas", p, bins_f)):
+        att = att_table(pp).detach().contiguous()
+        pid, starts, _ = clipped_pair_stream(bins, cfg)
+        if name == "stream":
+            fwd = lambda: stream.stream_forward(att, pid, starts, 0, tiles_x, cfg)
+        else:
+            att_al, tile_of, cbase = flat.chunked_pair_attrs(att, pid, starts, cfg, 9)
+            fwd = lambda: flat.slots_forward(att_al, starts, cbase, tile_of, 0, tiles_x,
+                                             tiles_y, cfg)
+        with torch.no_grad():
+            fo = fwd()
+        img_t = fo[:, 0:3].transpose(1, 2).contiguous().requires_grad_()
+        T_t = fo[:, 3].contiguous().requires_grad_()
+        img, _ = assemble_band(img_t, T_t, bins, cfg)
+        ct_img, ct_T = torch.autograd.grad(torch.mean((img[:qh, :qw] - target) ** 2),
+                                           [img_t, T_t])
+        if name == "stream":
+            bwd = lambda: stream.stream_backward(att, pid, starts, fo, ct_img, ct_T, 0,
+                                                 tiles_x, cfg)
+        else:
+            bwd = lambda: flat.slots_backward(att_al, starts, cbase, tile_of, 0, fo, ct_img,
+                                              ct_T, tiles_x, tiles_y, cfg)
+        with torch.no_grad():
+            times[name] = dict(fwd_ms=cuda_ms(fwd, 20), bwd_ms=cuda_ms(bwd, 10),
+                               pairs=int(bins.n_pairs))
+    print(f"# legacy kernels on the clamped bins on {card} ({QUICK_SPLATS} splats, {qw}x{qh}, "
+          f"perturbed scene; wrapper between CUDA events): C {times['stream']['fwd_ms']:.4f} "
+          f"ms, D (with its class sum) {times['stream']['bwd_ms']:.4f} over "
+          f"{times['stream']['pairs']} pairs of the legacy home layout; E "
+          f"{times['pallas']['fwd_ms']:.4f}, F {times['pallas']['bwd_ms']:.4f} over "
+          f"{times['pallas']['pairs']} rect-anchored pairs")
+    out["kernel_ms"] = times
+    return out
+
+
+def viewer_script(frames: int):
+    """The viewer session's input, frame → the control events before
+    that frame's update (the string "freeze" is controls.set_camera):
+    a left-button drag (orbit), a right-button drag (pan), the wheel
+    (out, then in), keys (W forward, E orbit), a SetCameraTarget back to
+    the origin, a freeze, and a key that ends it."""
+    from gsjax_torch import controls as ctl
+
+    ev = {2: [ctl.MouseDown(960.0, 540.0)], 11: [ctl.MouseUp()],
+          14: [ctl.MouseDown(900.0, 500.0, button=2)], 21: [ctl.MouseUp()],
+          33: [ctl.KeyDown("KeyW")], 36: [ctl.KeyUp("KeyW")],
+          40: [ctl.SetCameraTarget((0.0, 0.0, 0.0))], 50: ["freeze"],
+          58: [ctl.KeyDown("KeyE")], 62: [ctl.KeyUp("KeyE")]}
+    for i in range(3, 11):
+        ev[i] = [ctl.MouseMove(960.0 + 14.0 * (i - 2), 540.0 + 4.0 * (i - 2))]
+    for i in range(15, 21):
+        ev[i] = [ctl.MouseMove(900.0 + 9.0 * (i - 14), 500.0 + 5.0 * (i - 14))]
+    for i, dy in zip(range(24, 30), (40.0, 40.0, 40.0, -30.0, -30.0, -30.0)):
+        ev[i] = [ctl.Wheel(dy)]
+    check(max(ev) < frames, "viewer script longer than the session")
+    return ev
+
+
+def viewer_phase(g, cfg, dev, card) -> dict:
+    """18. The viewer loop at full width — the reference's main loop,
+    controls.update() then renderer.render(scene, camera), a frame at a
+    time: bonsai 1080p at cfg's caps, VIEWER_FRAMES frames of viewer_
+    script through controls.apply_event, update and to_camera, rendered by
+    render_trajectory(fade_in=True, fade_speed=FADE_SPEED) on the stream
+    backend under no_grad (it pulls each camera from the loop as it goes,
+    so each frame's render is timed between two pulls). The counters,
+    zeroed before and read after: A, B and C once a frame, nothing else.
+    Frames finite; successive frames differ wherever the camera moved
+    and are bit-equal where it stood still after the fade (the freeze); the
+    last frame bit-equal to render() of its camera with no pass; every
+    camera's overflow 0; the cameras through camera_to_json →
+    cameras_from_json bit for bit; the session replayed gives the same
+    frames. Prints ms a frame (median), the fade's frames apart, frames
+    per second, the replay's ms a frame, and the render and the copy to
+    the host apart over the same cameras."""
+    import numpy as np
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import controls as ctl
+    from gsjax_torch import kernels
+
+    r = float(np.hypot(4.0, 0.6))  # bench.py's view 0 as an orbit state
+    beta = float(np.arcsin(0.6 / r))
+    state = ctl.OrbitState(alpha=0.0, beta=beta, radius=r, d_alpha=0.0, d_beta=beta,
+                           d_radius=r)
+    params = ctl.OrbitParams()
+    intr = dict(fx=1600.0, fy=1600.0, width=WIDTH, height=HEIGHT, device=dev)
+    script = viewer_script(VIEWER_FRAMES)
+    cams, render_ms, controls_ms = [], [], []
+
+    def session(state):
+        for i in range(VIEWER_FRAMES):
+            t0 = time.perf_counter()
+            for e in script.get(i, ()):
+                state = ctl.set_camera(state) if e == "freeze" else ctl.apply_event(
+                    state, e, params)
+            state = ctl.update(state, params)
+            cam = ctl.to_camera(state, **intr)
+            cams.append(cam)
+            t1 = time.perf_counter()
+            controls_ms.append((t1 - t0) * 1e3)
+            yield cam
+            render_ms.append((time.perf_counter() - t1) * 1e3)
+
+    with torch.no_grad():
+        gt.render(g, ctl.to_camera(ctl.update(state, params), **intr), cfg)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    frames = gt.render_trajectory(g, session(state), cfg, fade_in=True, fade_speed=FADE_SPEED)
+    launched = dict(kernels.LAUNCHES)
+    check_launches(launched, "stream", VIEWER_FRAMES, train=False)
+    # the same session again (its cameras replayed, the fade anew): the
+    # frames bit-equal, each frame's time next to the first pass's
+    replay_ms = []
+
+    def replay():
+        for cam in cams:
+            t1 = time.perf_counter()
+            yield cam
+            replay_ms.append((time.perf_counter() - t1) * 1e3)
+
+    again = gt.render_trajectory(g, replay(), cfg, fade_in=True, fade_speed=FADE_SPEED)
+    check(np.array_equal(again, frames), "viewer: the replayed session's frames differ")
+    del again
+    check(frames.shape == (VIEWER_FRAMES, HEIGHT, WIDTH, 3) and bool(np.isfinite(frames).all()),
+          f"viewer frames {frames.shape} not finite")
+    check(len(render_ms) == VIEWER_FRAMES, f"viewer: {len(render_ms)} frames timed")
+    fade, faded = 0.0, []  # render_trajectory's schedule
+    for _ in range(VIEWER_FRAMES):
+        faded.append(fade < 1.0)
+        if fade < 1.0:
+            fade = min(fade + FADE_SPEED * 0.01, 1.0)
+    n_fade = sum(faded)
+    still, diffs = 0, []
+    for i in range(1, VIEWER_FRAMES):
+        same_cam = all(torch.equal(getattr(cams[i], f), getattr(cams[i - 1], f))
+                       for f in CAM_LEAVES)
+        d = float(np.abs(frames[i] - frames[i - 1]).max())
+        if not same_cam:
+            diffs.append(d)
+            check(d > 0, f"viewer: frame {i} equals frame {i - 1} though the camera moved")
+        elif not faded[i]:  # a still camera with no pass on either side
+            still += 1
+            check(d == 0, f"viewer: frame {i} differs from frame {i - 1} ({d}) at a "
+                  "still camera after the fade")
+    check(still >= 4, f"viewer: only {still} still frames")
+    # the session's cameras again, one at a time, no pass: each frame's
+    # render and its copy into fresh host memory (kept alive, as the loop
+    # keeps its frames) timed apart, and every camera's overflow counters
+    render_only, copy_only, ovf_total, kept = [], [], {}, []
+    with torch.no_grad():
+        for cam in cams:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, aux = gt.render(g, cam, cfg, return_aux=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            kept.append(img.cpu().numpy())
+            render_only.append((t1 - t0) * 1e3)
+            copy_only.append((time.perf_counter() - t1) * 1e3)
+            for k, v in ovf_of(aux).items():
+                ovf_total[k] = ovf_total.get(k, 0) + v
+    check(np.array_equal(kept[-1], frames[-1]), "viewer: the last frame differs from "
+          "render() of its camera")
+    check(not any(ovf_total.values()), f"viewer: overflow {ovf_total}")
+    only_ms, copy_ms = statistics.median(render_only), statistics.median(copy_only)
+    frame_mb = kept[-1].nbytes / 1e6
+    del kept
+    back = gt.cameras_from_json(json.dumps([gt.camera_to_json(c, id=i)
+                                            for i, c in enumerate(cams)]), device=dev)
+    check(len(back) == len(cams) and all(
+        all(torch.equal(getattr(a, f), getattr(b, f)) for f in CAM_LEAVES)
+        and (a.width, a.height, a.near, a.far) == (b.width, b.height, b.near, b.far)
+        for a, b in zip(cams, back)), "viewer: cameras changed through camera JSON")
+    med = statistics.median(render_ms)
+    med_fade = statistics.median(render_ms[:n_fade])
+    med_rest = statistics.median(render_ms[n_fade:])
+    print(f"# viewer loop on {card}: bonsai {N_SPLATS} at {WIDTH}x{HEIGHT}, "
+          f"{VIEWER_FRAMES} frames of controls events (drag, pan, wheel, keys, "
+          f"SetCameraTarget, a set_camera freeze; {still} still frames), render_trajectory"
+          f"(fade_in=True, fade_speed={FADE_SPEED}), stream: median {med:.3f} ms a frame "
+          f"(render, passes and the copy to the host), {n_fade} fade frames {med_fade:.3f}, "
+          f"the {VIEWER_FRAMES - n_fade} others {med_rest:.3f} ({1e3 / med_rest:.1f} frames "
+          f"a second); the session replayed, bit-equal: {statistics.median(replay_ms):.3f} ms a "
+          f"frame (fade frames {statistics.median(replay_ms[:n_fade]):.3f}, the others "
+          f"{statistics.median(replay_ms[n_fade:]):.3f}); the same cameras again, no pass, "
+          f"synchronised: the render {only_ms:.3f} ms and the "
+          f"copy of its {frame_mb:.1f} MB to fresh host memory {copy_ms:.3f} (medians); "
+          f"controls {statistics.median(controls_ms):.3f} ms a frame; A, B, C "
+          f"once a frame, nothing else; successive moving frames differ (least max |Δ| "
+          f"{min(diffs):.2e}), still ones bit-equal; the last frame bit-equal to render(); "
+          f"overflow 0; cameras bit-equal through camera JSON")
+    return dict(render_ms=render_ms, controls_ms=controls_ms, fade_frames=n_fade,
+                still_frames=still, median_ms=med, fade_ms=med_fade, rest_ms=med_rest,
+                render_only_ms=only_ms, copy_ms=copy_ms, replay_ms=replay_ms,
+                launches=launched)
+
+
 def _fmt(d: dict, digits: int = 4) -> dict:
     return {k: round(x, digits) for k, x in d.items()}
 
@@ -1894,13 +2413,31 @@ def main() -> int:
     t0 = time.perf_counter()
     tuned = autotune_phase(g, cams, dev, card)
     print(f"# autotune: {time.perf_counter() - t0:.2f} s")
-    del g
     torch.cuda.empty_cache()
 
     # 15. garden on the card: derived caps, a render, lazy steps -------------
     t0 = time.perf_counter()
     garden = garden_phase(dev, card)
     print(f"# garden: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # 16. the reference backends (oracle, xla) against stream and pallas ----
+    t0 = time.perf_counter()
+    reference = reference_phase(dev, card)
+    print(f"# reference: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # 17. legacy mode (footprint_clamp=True) through C-F ---------------------
+    t0 = time.perf_counter()
+    legacy = legacy_phase(dev, card)
+    print(f"# legacy: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # 18. the viewer loop: controls, then render, a frame at a time ----------
+    t0 = time.perf_counter()
+    viewer = viewer_phase(g, cfg, dev, card)
+    print(f"# viewer: {time.perf_counter() - t0:.2f} s")
+    del g
 
     # A-F: kernel → the training run its launches are read from (A, B:
     # both); the probes G-J: their runs in phase 11
@@ -1928,7 +2465,7 @@ def main() -> int:
         json.dump(dict(card=card, kind=kind, kernels=results, frame_ms=frame_ms,
                        stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train,
                        probes=probe_detail, lazy=lazy, scene_io=scene_io, autotune=tuned,
-                       garden=garden),
+                       garden=garden, reference=reference, legacy=legacy, viewer=viewer),
                   fh, indent=1)
 
     print(json.dumps({"kernels": results}))

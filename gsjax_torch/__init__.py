@@ -25,12 +25,25 @@ card unless device="cpu" is passed. core/autotune.derive_caps sizes the
 fat-split and pair budgets from a measured pass (project, kernels A and
 B).
 
-  Gaussians, BandedGaussians, Camera, RenderConfig, render, OrbitCamera,
-  render_trajectory, render_orbit, train, FramePlan, LazyTrainer,
-  build_frame_plan, lazy_render, load_splat, save_splat, load_ply,
-  load_ply_streamed, load_splat_streamed, transforms
+The reference paths, as gsjax's: RenderConfig(backend="oracle") (and
+render_oracle), the O(N·pixels) ground truth, and backend="xla", the
+padded-list blend, both plain PyTorch differentiated by autograd (xla's
+exact mode bins through kernels A and B); footprint_clamp=True, the
+legacy span budget, on every backend; render(..., passes=[...]) with
+render/passes.py's depth_fade and splat_scale. The viewer loop: `controls`
+(the reference's orbit controls as a pure state machine: apply_event,
+update, to_camera), render_trajectory(fade_in=True), and camera JSON
+(camera_from_json, cameras_from_json, camera_to_json).
+
+  Gaussians, BandedGaussians, Camera, RenderConfig, render, render_oracle,
+  OrbitCamera, controls, camera_from_json, camera_to_json,
+  cameras_from_json, render_trajectory, render_orbit, train, FramePlan,
+  LazyTrainer, build_frame_plan, lazy_render, load_splat, save_splat,
+  load_ply, load_ply_streamed, load_splat_streamed, transforms
 """
 
+from gsjax_torch.camera import controls
+from gsjax_torch.camera.json_io import camera_from_json, camera_to_json, cameras_from_json
 from gsjax_torch.camera.orbit import OrbitCamera
 from gsjax_torch.core import transforms
 from gsjax_torch.core.banded import BandedGaussians
@@ -41,6 +54,7 @@ from gsjax_torch.io.ply import load_ply
 from gsjax_torch.io.splat import load_splat, save_splat
 from gsjax_torch.io.stream import load_ply_streamed, load_splat_streamed
 from gsjax_torch.render.lazy import FramePlan, LazyTrainer, build_frame_plan, lazy_render
+from gsjax_torch.render.oracle import render_oracle
 from gsjax_torch.render.pipeline import render
 from gsjax_torch.viewer import render_orbit, render_trajectory
 from gsjax_torch import train
@@ -50,7 +64,12 @@ __all__ = [
     "Camera",
     "RenderConfig",
     "render",
+    "render_oracle",
     "OrbitCamera",
+    "controls",
+    "camera_from_json",
+    "camera_to_json",
+    "cameras_from_json",
     "render_trajectory",
     "render_orbit",
     "train",

@@ -6,6 +6,7 @@ gsjax_torch.
     python -m gsjax_torch.bench.run --mode fixed         # fixed camera, black target
     python -m gsjax_torch.bench.run --mode fixed-lazy --frames 64 --resort-every 16
     python -m gsjax_torch.bench.run --backend pallas --mode orbit-exact  # flat kernels
+    python -m gsjax_torch.bench.run --backend xla --quick --mode fixed  # the reference blend
     python -m gsjax_torch.bench.run --scene garden       # 5M splats, SH degree 2
     python -m gsjax_torch.bench.run --quick --mode orbit --views 2 --device cpu
 
@@ -20,8 +21,12 @@ black target. fixed-lazy: --frames lazy steps at the bench camera toward
 its render, a resort every --resort-every steps. Every view's (every
 resort's) overflow counters must read 0, or the run fails. --backend
 picks the blend of the exact modes, as bench.py's flag does: stream
-(kernels C, D; the default) or pallas (the flat slot-stream kernels E,
-F); the lazy modes need stream. --quick shrinks the scene (50,000 splats
+(kernels C, D; the default), pallas (the flat slot-stream kernels E, F)
+or xla (the padded-list reference blend in plain PyTorch, bench.py's
+tile_list_cap: 512 with --quick, else 1024; its n_tile_overflow is
+gated like every counter, so at bonsai's full size, ~1,150 pairs a tile
+on average, it fails the gate as bench.py's would); the lazy modes need
+stream. --quick shrinks the scene (50,000 splats
 at 640×480 unless --n / --width / --height say otherwise) and keeps the
 mode (bench.py's --quick runs the fixed mode whatever --mode says; here
 every mode has a small run, for the CPU tests).
@@ -36,8 +41,8 @@ the run's cameras (sized for the worst view, bench.py's rule), measured
 at the base caps --fat-cap / --fat-live-cap (None: scaled with the
 scene); the runner prints bench.py's `# autotune` line. bench.py derives
 for its stream backend only, because the TPU's band scratch needs it;
-the port has no band scratch and its fat caps serve both blends, so it
-derives for pallas too. --no-autotune renders at --fat-cap /
+the port has no band scratch and its fat caps serve every blend, so it
+derives for pallas and xla too. --no-autotune renders at --fat-cap /
 --fat-live-cap themselves.
 
 Prints one JSON line, bench.py's {"metric": "1080p_fwd_bwd_ms_per_frame",
@@ -159,8 +164,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=None, help="splat count")
     ap.add_argument("--mode", default="orbit",
                     choices=["orbit", "orbit-exact", "fixed", "fixed-lazy"])
-    ap.add_argument("--backend", default="stream", choices=["stream", "pallas"],
-                    help="the blend: stream (kernels C, D) or pallas (the flat "
+    ap.add_argument("--backend", default="stream", choices=["stream", "pallas", "xla"],
+                    help="the blend: stream (kernels C, D), xla (the padded-list "
+                    "reference blend, plain PyTorch) or pallas (the flat "
                     "slot-stream kernels E, F)")
     ap.add_argument("--views", type=int, default=30)
     ap.add_argument("--steps-per-view", type=int, default=16,
@@ -199,7 +205,7 @@ def main(argv=None) -> int:
     lazy = mode in ("orbit", "fixed-lazy")
     if lazy and (args.backend != "stream" or args.forward_only):
         raise SystemExit(f"--mode {mode} trains lazy steps through the stream backend "
-                         "(no --backend pallas, no --forward-only)")
+                         "(no --backend pallas or xla, no --forward-only)")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain path")
@@ -212,7 +218,8 @@ def main(argv=None) -> int:
     else:
         n = args.n or (5_000_000 if garden else 1_200_000)
         width, height = args.width or 1920, args.height or 1080
-    cfg = RenderConfig(backend=args.backend, chunk=128, fat_cap=args.fat_cap,
+    cfg = RenderConfig(backend=args.backend, chunk=128,
+                       tile_list_cap=512 if args.quick else 1024, fat_cap=args.fat_cap,
                        fat_live_cap=args.fat_live_cap)
     if garden:
         g = garden_like(n=n, sh_degree=2, device=dev)
@@ -259,7 +266,8 @@ def main(argv=None) -> int:
         for cam in cams:
             aux = render(g_train, cam, cfg, return_aux=True)[1]
             for k in OVERFLOW_KEYS:
-                ovf[k] = ovf.get(k, 0) + int(aux[k])
+                if k in aux:  # bench.py's rule: the keys the backend reports
+                    ovf[k] = ovf.get(k, 0) + int(aux[k])
     print(f"# overflow over {len(cams)} view(s): {ovf} (must be 0)", file=sys.stderr)
     if any(ovf.values()):
         print("# FAIL: overflow counters nonzero; raise --fat-cap / "

@@ -12,8 +12,10 @@ exact-footprint path of gsjax/render/binning.py.
      whose per-tile sequences are bit-identical to that global sort;
   3. per-tile segment starts by binary search.
 
-The rect and legacy-home anchors of the padded-list (xla) backend are not
-ported yet (ROADMAP queue 1, "reference blend path").
+The legacy span-budget mode (footprint_clamp=True) and the rect anchor
+enumerate each splat's span-clamped rect densely instead, [N, K] in plain
+PyTorch on every device (the reference computes them in jnp, not in a
+kernel), with the same cull and the same sort.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 from gsjax_torch import kernels
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
-from gsjax_torch.render.common import MAX_TILES, box_inside, box_qmin, depth_bits
+from gsjax_torch.render.common import (MAX_TILES, box_inside, box_qmin, clamp_rect_to_span,
+                                       depth_bits, tile_rect)
 from gsjax_torch.render.homesort import cull_threshold, sort_key
 from gsjax_torch.render.project import ProjectedSplats
 
@@ -209,14 +212,15 @@ def launch_expand(home_x, home_y, win, valid, mean2d, conic, thr, dbits, ty0: in
 
 @dataclasses.dataclass(frozen=True)
 class TileBins:
-    """pid_sorted [S] int32 pair ids (pid = home row·K + class, so sid =
-    pid // tile_span²), tile-major then near-to-far — only the live pairs
-    (S = n_pairs); tile_starts [T+1] int32 offsets into pid_sorted;
-    n_clamped, n_pairs, n_repack_overflow: diagnostics; ty0: first tile
-    row of the band."""
+    """pid_sorted [S] int32 pair ids (pid = row·K + slot, so sid = pid //
+    tile_span²), tile-major then near-to-far — only the live pairs (S =
+    n_pairs); tile_starts [T+1] int32 offsets into pid_sorted;
+    tile_counts [T] int32; n_clamped, n_pairs, n_repack_overflow:
+    diagnostics; ty0: first tile row of the band."""
 
     pid_sorted: torch.Tensor
     tile_starts: torch.Tensor
+    tile_counts: torch.Tensor
     n_clamped: torch.Tensor
     n_pairs: torch.Tensor
     ty0: int
@@ -233,42 +237,107 @@ def sort_pairs(pid_live, key):
     return pid_live[order], (key_sorted >> 32).to(torch.int32)
 
 
+def span_clamped_pairs(p: ProjectedSplats, cfg: RenderConfig, anchor: str,
+                       ty0: int, band_rows: int, tiles_x: int, tiles_y: int):
+    """The span-budget enumeration of the rect and legacy-home anchors
+    (gsjax/render/binning.py::build_tile_bins' else branch), dense over
+    [N, K] in plain PyTorch: each splat's radius rect clamped to the
+    span (centred on the mean's tile under footprint_clamp or the home
+    anchor), slot k = (k % span, k // span) of a span×span grid anchored
+    at the clamped rect's corner ("rect") or at home − span//2 ("home",
+    home = the mean's tile clipped to the image, as
+    homesort._legacy_home), kept when it lies in the rect and the band
+    and the ellipse reaches α_min in the tile (kernel B's cull: box_qmin
+    against homesort.cull_threshold). Returns the live pairs in ascending
+    pid = i·K + k, (pid_live [S] i32, key [S] i64 = sort_key(band tile,
+    depth bits)), and n_clamped (the valid splats the clamp cut)."""
+    span = cfg.tile_span
+    k_slots = span * span
+    ts = cfg.tile_size
+    mean2d, radius = p.mean2d.detach(), p.radius.detach()
+    x0, y0, x1, y1 = tile_rect(mean2d, radius, tiles_x, tiles_y, ts)
+    x0, y0, x1, y1, clamped = clamp_rect_to_span(
+        x0, y0, x1, y1, mean2d, ts, span,
+        center_window=cfg.footprint_clamp or anchor == "home",
+    )
+    n_clamped = (clamped & p.valid).sum().to(torch.int32)
+    slot = torch.arange(k_slots, dtype=torch.int32, device=mean2d.device)
+    sx, sy = (slot % span)[None, :], (slot // span)[None, :]
+    if anchor == "home":
+        home = lambda v, hi: torch.clamp(torch.floor(v / ts).to(torch.int32), 0, hi - 1)
+        txs = (home(mean2d[:, 0], tiles_x) - span // 2)[:, None] + sx  # [N, K]
+        tys = (home(mean2d[:, 1], tiles_y) - span // 2)[:, None] + sy
+    elif anchor == "rect":
+        txs = x0[:, None] + sx
+        tys = y0[:, None] + sy
+    else:
+        raise ValueError(f"unknown anchor {anchor!r}")
+    ok = (
+        p.valid[:, None]
+        & (txs >= x0[:, None]) & (txs < x1[:, None])
+        & (tys >= y0[:, None]) & (tys < y1[:, None])
+        & (tys >= ty0) & (tys < ty0 + band_rows)
+    )
+    conic = p.conic.detach()
+    ca, cb, cc = conic[:, 0:1], conic[:, 1:2], conic[:, 2:3]
+    ts_f = float(ts)
+    dxl = txs.to(torch.float32) * ts_f - mean2d[:, 0:1]
+    dxr = dxl + (ts_f - 1.0)
+    dyl = tys.to(torch.float32) * ts_f - mean2d[:, 1:2]
+    dyr = dyl + (ts_f - 1.0)
+    thr = cull_threshold(p.opacity.detach(), cfg.alpha_min)[:, None]
+    qmin = box_qmin(ca, cb, cc, -cb / cc, -cb / ca, dxl, dxr, dyl, dyr)
+    ok = ok & (box_inside(dxl, dxr, dyl, dyr) | (qmin <= thr))
+    live = torch.nonzero(ok.reshape(-1)).squeeze(1)  # ascending pid
+    tile = ((tys - ty0) * tiles_x + txs).reshape(-1)[live]
+    dbits = depth_bits(p.depth.detach())[live // k_slots]
+    return live.to(torch.int32), sort_key(tile, dbits), n_clamped
+
+
 def build_tile_bins(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
                     ty0: int = 0, band_rows: int | None = None,
-                    anchor: str = "home", layout=None) -> TileBins:
-    """Bin the home rows `p` of `layout` into tile rows
-    [ty0, ty0 + band_rows) (the whole image by default)."""
-    if anchor != "home" or layout is None or cfg.footprint_clamp:
-        raise NotImplementedError(
-            "only anchor='home' with an exact-footprint layout is ported; "
-            "the rect and legacy anchors wait for ROADMAP queue 1 "
-            "'reference blend path'"
-        )
-    span = cfg.tile_span
-    if span % 2 != 1:
-        raise ValueError("anchor='home' requires an odd tile_span")
+                    anchor: str = "rect", layout=None) -> TileBins:
+    """Bin `p` into tile rows [ty0, ty0 + band_rows) (the whole image by
+    default).
+
+    With anchor="home" and an exact-footprint `layout`
+    (homesort.build_home_layout, footprint_clamp=False), `p` are the
+    layout's home rows and kernel B expands each into its classes: the
+    merged stream equals an unclamped rect enumeration. Otherwise (the
+    legacy span-budget mode, or the rect anchor) each row's span-clamped
+    rect is enumerated densely (span_clamped_pairs); both anchors give
+    the same (tile, depth) pair set, and the home anchor's slot k is the
+    pair's class, as the stream blend's backward needs."""
     tiles_x = cfg.tiles_x(cam.width)
+    tiles_y = cfg.tiles_y(cam.height)
     if band_rows is None:
-        band_rows = cfg.tiles_y(cam.height)
+        band_rows = tiles_y
     n_tiles = tiles_x * band_rows
     if n_tiles > MAX_TILES:
         raise ValueError(f"{n_tiles} tiles exceeds {MAX_TILES}; increase tile_size")
-    pid_sorted, tile_of = sort_pairs(*expand_live_pairs(p, layout, ty0, band_rows,
-                                                        tiles_x, cfg))
+    dev = p.depth.device
+    if anchor == "home" and layout is not None and not cfg.footprint_clamp:
+        if cfg.tile_span % 2 != 1:
+            raise ValueError("anchor='home' requires an odd tile_span")
+        pid_live, key = expand_live_pairs(p, layout, ty0, band_rows, tiles_x, cfg)
+        n_clamped = torch.zeros((), dtype=torch.int32, device=dev)  # budgets live in the layout
+    else:
+        pid_live, key, n_clamped = span_clamped_pairs(p, cfg, anchor, ty0, band_rows,
+                                                      tiles_x, tiles_y)
+    pid_sorted, tile_of = sort_pairs(pid_live, key)
     tile_starts = torch.searchsorted(
         tile_of,
-        torch.arange(n_tiles + 1, dtype=torch.int32, device=tile_of.device),
+        torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
         side="left",
     ).to(torch.int32)
-    zero = torch.zeros((), dtype=torch.int32, device=tile_of.device)
     return TileBins(
         pid_sorted=pid_sorted,
         tile_starts=tile_starts,
-        n_clamped=zero,  # budgets live in the layout
-        n_pairs=torch.full((), pid_sorted.shape[0], dtype=torch.int32,
-                           device=tile_of.device),
+        tile_counts=tile_starts[1:] - tile_starts[:-1],
+        n_clamped=n_clamped,
+        n_pairs=torch.full((), pid_sorted.shape[0], dtype=torch.int32, device=dev),
         ty0=ty0,
-        n_repack_overflow=zero,  # one stable sort: no repack grid
+        n_repack_overflow=torch.zeros((), dtype=torch.int32, device=dev),  # one stable sort
         tiles_x=tiles_x,
         band_rows=band_rows,
     )

@@ -12,6 +12,15 @@ import torch
 MAX_TILES = (1 << 30) - 1
 
 
+def f32_scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d float32 tensor on `like`'s device. Dividing by it is a true
+    division; dividing a CUDA tensor by a Python float multiplies by the
+    reciprocal instead, which rounds differently. Filled on the device:
+    torch.tensor(v, device=...) copies from the host and waits for the
+    stream."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
+
+
 def depth_bits(depth: torch.Tensor) -> torch.Tensor:
     """Monotone i32 key for positive f32 depths (the raw bit pattern)."""
     return depth.to(torch.float32).contiguous().view(torch.int32)

@@ -30,7 +30,7 @@ import torch
 from gsjax_torch import kernels
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
-from gsjax_torch.render.common import box_inside, box_qmin, depth_bits, tile_rect
+from gsjax_torch.render.common import box_inside, box_qmin, depth_bits, f32_scalar, tile_rect
 from gsjax_torch.render.project import ProjectedSplats
 
 PCOLS = 11  # mean2d(2) + depth(1) + conic(3) + radius(1) + rgb(3) + opacity(1)
@@ -38,21 +38,12 @@ _RPT_STEP = 2048  # fat_cap granularity, kept from the reference
 _BIG = float(1 << 30)  # fb/fbe of the non-fat pad rows
 
 
-def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
-    """A 0-d float32 tensor on `like`'s device. Dividing by it is a true
-    division; dividing a CUDA tensor by a Python float multiplies by the
-    reciprocal instead, which rounds differently. Filled on the device:
-    torch.tensor(v, device=...) copies from the host and waits for the
-    stream."""
-    return torch.full((), v, dtype=torch.float32, device=like.device)
-
-
 def cull_threshold(opacity: torch.Tensor, alpha_min: float) -> torch.Tensor:
     """2·ln(max(op, α_min)/α_min) + 1e-3: the largest conic quadratic at
     which the splat still reaches alpha_min (plus slack for fexp). One
     torch computation shared by the kernels and their plain versions, so
     a device `logf` can never flip a borderline cull between them."""
-    a = _f32(alpha_min, opacity)
+    a = f32_scalar(alpha_min, opacity)
     return 2.0 * torch.log(torch.maximum(opacity, a) / a) + 1e-3
 
 
@@ -114,8 +105,8 @@ def repeat_fat_parents_plain(src18, fb, fbe, n_copies, fat_cap: int,
                        cwx0, cwx1, cwy0, cwy1, float(ts))
     ok = (slot_i < nc) & (qmin <= th)
     hk = torch.where(ok, (chy * tiles_x + chx).to(torch.float32),
-                     _f32(tiles_x * tiles_y, a))
-    dep = torch.where(ok, col(7), _f32(1.0, a))
+                     f32_scalar(tiles_x * tiles_y, a))
+    dep = torch.where(ok, col(7), f32_scalar(1.0, a))
     cw = [torch.clamp(c.to(torch.float32), 0.0, 16383.0)
           for c in (cwx0, cwx1, cwy0, cwy1)]
     keys = torch.stack([hk, dep, cw[0] * 16384.0 + cw[1], cw[2] * 16384.0 + cw[3]])
@@ -482,7 +473,7 @@ def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
     if cfg.footprint_clamp:
         htx, hty, on = _legacy_home(p, tiles_x, tiles_y, cfg)
         home_key = torch.where(on, hty * tiles_x + htx, torch.full_like(htx, t_sent))
-        depth_all = torch.where(p.valid, p.depth.detach(), _f32(1.0, p.depth))
+        depth_all = torch.where(p.valid, p.depth.detach(), f32_scalar(1.0, p.depth))
         wpa = torch.zeros(n, dtype=torch.int32, device=dev)
         wpb = wpa
         on_ext = on

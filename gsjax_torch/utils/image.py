@@ -1,4 +1,5 @@
-"""PNG writing with numpy and the standard library only."""
+"""PNG writing and reading with numpy and the standard library only — the
+PyTorch port's copy of gsjax/utils/image.py."""
 
 from __future__ import annotations
 
@@ -32,3 +33,40 @@ def write_png(path, img) -> None:
     out += chunk(b"IEND", b"")
     with open(path, "wb") as fh:
         fh.write(out)
+
+
+def read_png(path) -> np.ndarray:
+    """Minimal PNG reader for files written by write_png (8-bit RGB,
+    no interlace)."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos = 8
+    idat = b""
+    w = h = None
+    while pos < len(data):
+        (ln,) = struct.unpack(">I", data[pos : pos + 4])
+        tag = data[pos + 4 : pos + 8]
+        body = data[pos + 8 : pos + 8 + ln]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            assert depth == 8 and ctype == 2, "only 8-bit RGB supported"
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + ln
+    raw = zlib.decompress(idat)
+    stride = w * 3 + 1
+    rows = []
+    prev = np.zeros(w * 3, np.uint8)
+    for y in range(h):
+        ftype = raw[y * stride]
+        line = np.frombuffer(raw[y * stride + 1 : (y + 1) * stride], np.uint8)
+        if ftype == 0:
+            cur = line.copy()
+        elif ftype == 2:  # Up
+            cur = (line.astype(np.int16) + prev).astype(np.uint8)
+        else:
+            raise ValueError(f"unsupported PNG filter {ftype}")
+        rows.append(cur)
+        prev = cur
+    return np.stack(rows).reshape(h, w, 3)

@@ -1,6 +1,9 @@
 """Headless viewer: render camera trajectories to frames — the PyTorch
-counterpart of gsjax/viewer.py. Rendering runs under torch.no_grad() on
-the device of the scene's tensors."""
+counterpart of gsjax/viewer.py, the form of the reference's browser loop
+(controls.update(), then renderer.render(scene, camera), once a frame;
+camera/controls.py is the controls). Rendering runs under
+torch.no_grad() on the device of the scene's tensors; the fade-in pass
+animates as the reference's FadeInPass does."""
 
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import torch
 
 from gsjax_torch.camera.orbit import OrbitCamera
 from gsjax_torch.core.config import RenderConfig
+from gsjax_torch.render.passes import depth_fade
 from gsjax_torch.render.pipeline import render
 from gsjax_torch.utils.image import write_png
 
@@ -19,17 +23,20 @@ def render_trajectory(g, cameras, cfg: RenderConfig = RenderConfig(),
                       out_dir=None, fade_in: bool = False,
                       fade_speed: float = 1.0):
     """Render a list of cameras; returns frames [F, H, W, 3] (numpy
-    float32) and writes frame_%04d.png into out_dir when given. fade_in
-    (the reference's FadeInPass) waits for render/passes.py."""
-    if fade_in:
-        raise NotImplementedError(
-            "fade_in needs render/passes.py: ROADMAP queue 1 'controls/passes'"
-        )
-    del fade_speed  # only read by the fade-in pass
+    float32) and writes frame_%04d.png into out_dir when given.
+
+    fade_in is the reference's FadeInPass: the fade value advances by
+    fade_speed·0.01 a frame up to 1, each frame rendering with
+    depth_fade(value); once it reaches 1 the frames carry no pass."""
     frames = []
+    fade = 0.0
     with torch.no_grad():
         for i, cam in enumerate(cameras):
-            img = render(g, cam, cfg).cpu().numpy()
+            passes = ()
+            if fade_in and fade < 1.0:
+                fade = min(fade + fade_speed * 0.01, 1.0)
+                passes = (depth_fade(fade),)
+            img = render(g, cam, cfg, passes=passes).cpu().numpy()
             frames.append(img)
             if out_dir is not None:
                 os.makedirs(out_dir, exist_ok=True)

@@ -187,10 +187,29 @@ Phases (any failure exits non-zero; there is no CPU path):
                bit-equal to render() of its camera, overflow 0 at every
                camera, the cameras bit-equal through camera JSON; ms a
                frame (the fade's frames apart) and frames per second.
+ 19. sharded — the tile-sharded path (gsjax_torch.parallel) at full
+               width: bonsai 1.2M, view 0 at 1080p. 19a: one
+               make_train_step_equalized step over 4 bands in one process
+               (cuts by derive_row_cuts, caps by derive_shard_caps), A, B,
+               C, D and D' once a band and nothing else, its loss within
+               1e-5 of the whole image's and 5% of 0.00031, its gradients
+               within phase 16's bounds of the whole image's, overflow 0;
+               render_sharded over 4 equal bands within C's gate of
+               render(); 19b: on a band with ty0 > 0 and fewer live rows
+               than static ones, A and B bit-equal to their plain
+               versions, C and D within phases 6 and 9's gates; 19c: each
+               band's forward + backward ms, splats, home rows and pairs,
+               the sum and max against the unsharded step, the all-
+               reduce's bytes; 19d: dryrun_multichip(8) on the card
+               against MULTICHIP_r05 (cuts, loss 1e-4, pairs 0.1%, the
+               CPU's beside), grads_match, overflow 0; 19e: two gloo
+               processes of 2 bands on the one card (120 s each) against
+               one process's 4-band mesh, rtol 1e-5, the loss falling,
+               their render_sharded frame within 1e-6 of the process's.
 Prints the kernels' JSON line (A-J and D's class sum, each with its
 time, its plain version's, its bound and its launches: A-F in their
-path's training run,
-G-J in their probe's timed run in phase 11; a probe's times and bound
+path's training run (A-D and D' also `sharded_launches`, phase 19's
+step), G-J in their probe's timed run in phase 11; a probe's times and bound
 are summed over its variants or class counts, one launch of each; its
 bound_by is its roofline's limit, and beside it roofline_ms, floor_ms,
 floor_part, limit and least_floor_bound_ms), then
@@ -242,6 +261,11 @@ FD_ABS, FD_REL, FD_EPS = 2e-4, 2e-2, 1e-3  # tests/test_render.py's finite diffe
 CAM_LEAVES = ("position", "quat", "fx", "fy")
 VIEWER_FRAMES, FADE_SPEED = 72, 4.0  # phase 18: the fade reaches 1 at frame ~25
 FLAT_FIXED_STEPS = 4
+# phase 19: the equalized step's bands on one card; MULTICHIP_r05.json's
+# dryrun_multichip(8) (cuts, loss, pairs); the two-process gloo run
+SHARD_BANDS, DRYRUN_BANDS = 4, 8
+DRYRUN_CUTS, DRYRUN_LOSS, DRYRUN_PAIRS = [0, 8, 9, 10, 11, 12, 13, 14, 16], 0.019779, 2538
+MP_TIMEOUT_S = 120  # each worker process's limit
 # the kernels each path launches (LAUNCHES keys) serving, and besides
 # those when training
 SERVE_KERNELS = {"stream": ("repeat", "expand", "stream_fwd"),
@@ -1775,6 +1799,321 @@ def viewer_phase(g, cfg, dev, card) -> dict:
                 launches=launched)
 
 
+def band_stages(g, cam, cfg, ty0: int, band: int, rows_live: int) -> dict:
+    """parallel.render_sharded._render_band's stream chain
+    (binning.build_band_bins, then the blend) without gradients, timed
+    stage by stage with a synchronize after each: the band's projected
+    splats ("p"), its prefiltered scene ("pb", n_pref), home table and
+    layout after the slice ("ph", "layout", n_sliced), bins, and each
+    stage's ms ("ms": project, prefilter, home_layout, slice, bins_sort,
+    blend)."""
+    import torch
+
+    from gsjax_torch.render.binning import build_band_bins
+    from gsjax_torch.render.project import project
+    from gsjax_torch.render.stream import composite_tiles_stream
+
+    ms, made = {}, {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+
+    def lap(name, out=None):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms[name] = (now - t) * 1e3
+        made[name] = out
+        t = now
+
+    with torch.no_grad():
+        p = project(g, cam, cfg)
+        lap("project")
+        ph, layout, bins, n_pref, n_sliced = build_band_bins(p, cam, cfg, ty0, band, rows_live,
+                                                             restrict=True, on_stage=lap)
+        composite_tiles_stream(ph, layout, bins, cam, cfg)
+        lap("blend")
+    return dict(p=p, pb=made["prefilter"], n_pref=int(n_pref), ph=ph, layout=layout,
+                n_sliced=int(n_sliced), bins=bins, ms=ms)
+
+
+def sharded_phase(g, cams, cfg, dev, card, unsharded) -> dict:
+    """19. The tile-sharded path on the card at full width: bonsai 1.2M,
+    orbit view 0 at 1080p (68 tile rows), chunk 128.
+
+    19a: cuts by derive_row_cuts over SHARD_BANDS bands, caps by
+    derive_shard_caps(bands=...); one make_train_step_equalized step (one
+    process, the bands in turn) from perturb(g) toward g's render of the
+    view, the counters zeroed before and read after: A, B, C, D and D′
+    once a band, no other kernel; its loss within 1e-5 of the whole
+    image's (render, squared error over _image_px · 3) and within 5% of
+    bench.py's loss0; each gradient leaf within phase 16's bounds of the
+    whole image's gradient; every counter's overflow 0. render_sharded
+    over SHARD_BANDS equal bands within C's gate of render() at view 0
+    (phase 7's frame).
+    19b: on a band with ty0 > 0 and fewer live rows than the bands' static
+    rows, kernels A and B bit-equal to their plain versions, C and D
+    within phases 6 and 9's gates (C and D's cotangents of the band's
+    loss).
+    19c: each band's forward + backward ms, its prefiltered splats, home
+    rows and pairs; their sum and max against the unsharded step's (timed
+    here, and phase 10's); the all-reduce's bytes (not timed: one card).
+    19d: dryrun_multichip(DRYRUN_BANDS) on the card: MULTICHIP_r05's cuts,
+    its loss within 1e-4, its pairs within 0.1% (the host CPU's run
+    beside it), grads_match, overflow 0.
+    19e: two gloo processes of two bands on the one card
+    (parallel.mp_worker --device cuda:0, MP_TIMEOUT_S each): their 3
+    losses those of one process's 4-band mesh within rtol 1e-5, falling;
+    their render_sharded frame (the ranks' bands summed by all_reduce)
+    within 1e-6 of the process's."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import kernels
+    from gsjax_torch.bench.run import perturb
+    from gsjax_torch.core.autotune import derive_row_cuts, derive_shard_caps, measure_occupancy
+    from gsjax_torch.parallel import mp_worker
+    from gsjax_torch.parallel.dryrun import dryrun_multichip
+    from gsjax_torch.parallel.mesh import make_mesh
+    from gsjax_torch.parallel.render_sharded import (AUX_COUNTERS, _band_loss, _image_px,
+                                                     _render_band, make_train_step_equalized,
+                                                     pad_target_rows, render_sharded)
+    from gsjax_torch.render import binning, homesort, stream
+    from gsjax_torch.render.composite import assemble_band, att_table, clipped_pair_stream
+
+    out = {}
+    cam0 = cams[0].to(dev)
+    ts = cfg.tile_size
+    tiles_x, tiles_y = cfg.tiles_x(WIDTH), cfg.tiles_y(HEIGHT)
+    n_el = _image_px(cam0, cfg) * 3
+    with torch.no_grad():
+        target = gt.render(g, cam0, cfg)
+    g_t = perturb(g)
+    params = [getattr(g_t, f) for f in RAW_FIELDS]
+
+    # 19a. the equalized step over SHARD_BANDS bands, one process
+    t0 = time.perf_counter()
+    m = measure_occupancy(g_t, cam0, cfg)
+    cuts = derive_row_cuts(g_t, cam0, cfg, SHARD_BANDS, m=m)
+    rows = [cuts[i + 1] - cuts[i] for i in range(SHARD_BANDS)]
+    band_max = max(rows)
+    cfg_b = derive_shard_caps(g_t, cam0, cfg, bands=list(zip(cuts[:-1], rows)), m=m)
+    derive_ms = (time.perf_counter() - t0) * 1e3
+    print(f"# sharded: cuts {cuts} (rows {rows}, static {band_max}); caps prefilter "
+          f"{cfg_b.shard_prefilter_cap}, slice {cfg_b.shard_slice_cap}, pairs "
+          f"{cfg_b.pair_cap}, fat {cfg_b.fat_cap} / {cfg_b.fat_live_cap}; derived in "
+          f"{derive_ms:.1f} ms")
+    loss1 = torch.sum((gt.render(g_t, cam0, cfg) - target) ** 2) / n_el
+    grads1 = torch.autograd.grad(loss1, params)
+    loss1 = float(loss1.detach())
+    opt = torch.optim.Adam(params, lr=1e-3)
+    step = make_train_step_equalized(cam0, cfg_b, make_mesh(SHARD_BANDS, dev), opt, cuts)
+    tgt = pad_target_rows(cfg_b, cam0, target, band_max)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss, aux = step(g_t, tgt)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    loss = float(loss)
+    aux = {k: int(v) for k, v in aux.items()}
+    rel1, rel0 = abs(loss - loss1) / loss1, abs(loss - TRAIN_LOSS0) / TRAIN_LOSS0
+    print(f"# sharded 19a: equalized step over {SHARD_BANDS} bands {step_ms:.2f} ms (its first "
+          f"call); loss {loss:.9f}, the whole image's {loss1:.9f} (rel {rel1:.2e}), "
+          f"bench.py's loss0 {TRAIN_LOSS0} (rel {rel0:.2e}); counters {aux}; launches "
+          f"{nonzero(launches)}")
+    for name, count in launches.items():
+        want = SHARD_BANDS if name in SERVE_KERNELS["stream"] + TRAIN_KERNELS["stream"] else 0
+        check(count == want, f"sharded step: kernel {name} launched {count} times over "
+              f"{SHARD_BANDS} bands (want {want})")
+    check(rel1 <= 1e-5, f"sharded step: loss {loss} not within 1e-5 of the whole image's {loss1}")
+    check(rel0 <= 0.05, f"sharded step: loss {loss} not within 5% of {TRAIN_LOSS0}")
+    check(all(v == 0 for k, v in aux.items() if k.endswith("overflow")),
+          f"sharded step: overflow {aux}")
+    grad_rel = {}
+    for f, a, p in zip(RAW_FIELDS, grads1, params):
+        grad_rel[f] = rel_to_peak(p.grad, a)
+        check(grad_rel[f][0] <= GRAD_REL_P999 and grad_rel[f][1] <= GRAD_REL_MAX
+              and bool(torch.isfinite(p.grad).all()),
+              f"sharded step: gradient of {f} against the whole image's (p99.9, max) "
+              f"{grad_rel[f]}")
+    print(f"# sharded 19a: gradients against the whole image's, (p99.9, max) |Δ|/peak "
+          f"{ {f: (f'{a:.1e}', f'{b:.1e}') for f, (a, b) in grad_rel.items()} }")
+    with torch.no_grad():
+        img_s = render_sharded(g, cam0, cfg, make_mesh(SHARD_BANDS, dev))
+    p999, dmax, ok = c_gate(img_s[:HEIGHT, :WIDTH], target)
+    print(f"# sharded 19a: render_sharded over {SHARD_BANDS} equal bands "
+          f"({img_s.shape[0]} rows) against render() at view 0: p99.9 |Δ| {p999:.3e}, max "
+          f"{dmax:.3e}")
+    check(ok and not img_s[tiles_y * ts:].any(),
+          f"render_sharded: outside C's gate ({p999}, {dmax}) or past the tiles not black")
+    del img_s
+    out.update(cuts=cuts, caps=dict(prefilter=cfg_b.shard_prefilter_cap,
+                                    slice=cfg_b.shard_slice_cap, pairs=cfg_b.pair_cap),
+               loss=loss, loss_whole=loss1, aux=aux, launches=launches, grad_rel=grad_rel,
+               first_step_ms=step_ms, render_sharded=(p999, dmax))
+
+    # 19b. kernels A-D on a band off ty0 = 0, fewer live rows than static
+    b = min(range(1, SHARD_BANDS), key=lambda d: rows[d])
+    ty0, live = cuts[b], rows[b]
+    check(live < band_max, f"no band with fewer live rows than {band_max}: {rows}")
+    st = band_stages(g_t, cam0, cfg_b, ty0, band_max, live)
+    pb, ph, layout, bins = st["pb"], st["ph"], st["layout"], st["bins"]
+    with torch.no_grad():
+        src18, fb, fbe, n_copies = homesort.fat_repeat_inputs(pb, tiles_x, tiles_y, cfg_b)
+        fat_cap = homesort.resolve_fat_caps(pb.depth.shape[0], cfg_b)[0]
+        a_args = (src18, fb, fbe, n_copies, fat_cap, tiles_x, tiles_y, cfg.tile_span, ts,
+                  cfg.alpha_min)
+        tail_k, keys_k = homesort.repeat_fat_parents(*a_args)
+        tail_p, keys_p = homesort.repeat_fat_parents_plain(*a_args)
+        check(torch.equal(tail_k, tail_p) and torch.equal(keys_k, keys_p),
+              f"band {b}: kernel A differs from its plain version")
+        b_args = (ph, layout, ty0, live, tiles_x, cfg_b)
+        pid_k, key_k = binning.expand_live_pairs(*b_args)
+        pid_p, key_p = binning.expand_live_pairs_plain(*b_args)
+        check(pid_k.shape == pid_p.shape and torch.equal(pid_k, pid_p)
+              and torch.equal(key_k, key_p), f"band {b}: kernel B differs from its plain version")
+        tiles_live = (key_k >> 32).to(torch.int32)
+        check(int(tiles_live.max()) < tiles_x * live, f"band {b}: kernel B emitted a pair "
+              f"past its live rows")
+        att = att_table(ph).contiguous()
+        pid, starts, _ = clipped_pair_stream(bins, cfg_b)
+        c_args = (att, pid, starts, ty0, tiles_x, cfg_b)
+        out_k = stream.stream_forward(*c_args)
+        err_c, p999_c, nd_c, _ = blend_diff(out_k, stream.stream_forward_plain(*c_args))
+    check(p999_c <= 2e-5 and err_c <= 5e-3 and nd_c <= max(8, tiles_x * band_max // 1000),
+          f"band {b}: kernel C against its plain version p99.9 {p999_c}, max {err_c}, "
+          f"n_done differs on {nd_c} tiles")
+    img_t = out_k[:, 0:3].transpose(1, 2).contiguous().requires_grad_()
+    T_t = out_k[:, 3].contiguous().requires_grad_()
+    img_b, _ = assemble_band(img_t, T_t, bins, cfg_b)
+    loss_b = _band_loss(img_b, tgt[ty0 * ts:], ty0 * ts, live * ts, cam0, n_el)
+    ct_img, ct_T = torch.autograd.grad(loss_b, [img_t, T_t])
+    d_args = (att, pid, starts, out_k, ct_img, ct_T, ty0, tiles_x, cfg_b)
+    with torch.no_grad():
+        dk, dk2 = stream.stream_backward(*d_args), stream.stream_backward(*d_args)
+        p999_d, rel_max_d, err_d, n_rows = grad_diff(dk, stream.stream_backward_plain(*d_args))
+    check(torch.equal(dk, dk2), f"band {b}: kernel D's two launches differ")
+    check(bool((p999_d <= 1e-4).all()) and bool((rel_max_d <= 1e-1).all()),
+          f"band {b}: kernel D against its plain version p99.9 {p999_d.tolist()}, max "
+          f"{rel_max_d.tolist()}")
+    print(f"# sharded 19b: band {b} (ty0 {ty0}, {live} of {band_max} rows live): A "
+          f"({int(n_copies)} copy slots of {fat_cap}) and B ({pid_k.shape[0]} pairs) bit-equal "
+          f"to their plain versions; C p99.9 {p999_c:.2e} max {err_c:.2e}, n_done differs on "
+          f"{nd_c} tiles; D per column p99.9 |Δ|/peak {fmt_cols(p999_d)}, max "
+          f"{fmt_cols(rel_max_d)} over {n_rows} rows, two launches bit-equal")
+    out["band_kernels"] = dict(band=b, ty0=ty0, rows_live=live, pairs=int(pid_k.shape[0]),
+                               c=(p999_c, err_c, nd_c), d_p999=p999_d.tolist(),
+                               d_max=rel_max_d.tolist())
+    del st, pb, ph, layout, bins, src18, fb, fbe, tail_k, keys_k, tail_p, keys_p, pid_k, key_k
+    del pid_p, key_p, att, pid, starts, out_k, img_t, T_t, img_b, ct_img, ct_T, dk, dk2, d_args
+
+    # 19c. each band's forward + backward, its splats, home rows and pairs
+    per_band = []
+    for d in range(SHARD_BANDS):
+        ty0, live = cuts[d], rows[d]
+
+        def fwd_bwd(ty0=ty0, live=live):
+            img, _ = _render_band(g_t, cam0, cfg_b, ty0, band_max, live)
+            _band_loss(img, tgt[ty0 * ts:], ty0 * ts, live * ts, cam0, n_el).backward()
+
+        ms = statistics.median(host_ms(fwd_bwd, 3))
+        band_stages(g_t, cam0, cfg_b, ty0, band_max, live)  # warm
+        st = band_stages(g_t, cam0, cfg_b, ty0, band_max, live)
+        per_band.append(dict(band=d, ty0=ty0, rows=live, ms=ms,
+                             stages_ms={k: round(v, 3) for k, v in st["ms"].items()},
+                             splats=int(st["pb"].valid.sum()), splat_rows=st["pb"].depth.shape[0],
+                             home_rows=int(st["ph"].valid.sum()),
+                             home_table=st["ph"].depth.shape[0],
+                             pairs=int(st["bins"].n_pairs), n_pref=st["n_pref"],
+                             n_sliced=st["n_sliced"]))
+        del st
+    opt.zero_grad(set_to_none=True)
+
+    def whole():
+        (torch.sum((gt.render(g_t, cam0, cfg) - target) ** 2) / n_el).backward()
+
+    whole_ms = statistics.median(host_ms(whole, 3))
+    opt.zero_grad(set_to_none=True)
+    band_ms = [x["ms"] for x in per_band]
+    split = unsharded["split_ms"]
+    p10 = statistics.median(split["forward"]) + statistics.median(split["backward"])
+    reduce_bytes = sum(p.numel() for p in params) * 4 + (1 + 2 * len(AUX_COUNTERS)) * 4
+    for x in per_band:
+        print(f"# sharded 19c on {card}: band {x['band']} (rows {x['ty0']}-"
+              f"{x['ty0'] + x['rows'] - 1}): forward + backward {x['ms']:.3f} ms; prefiltered "
+              f"splats {x['splats']} (table {x['splat_rows']}), home rows {x['home_rows']} "
+              f"(slice {x['home_table']}), pairs {x['pairs']}; the forward staged (ms) "
+              f"{x['stages_ms']}")
+    print(f"# sharded 19c on {card}: bands' forward + backward sum {sum(band_ms):.3f} ms, max "
+          f"{max(band_ms):.3f} (what one step on {SHARD_BANDS} cards would pay before the "
+          f"all-reduce); the whole image's forward + backward {whole_ms:.3f} ms here, phase "
+          f"10's {p10:.3f} (its median step {statistics.median(unsharded['step_ms']):.3f} with "
+          f"Adam); the all-reduce would sum {reduce_bytes} bytes ({reduce_bytes / 1e6:.1f} MB: "
+          f"{sum(p.numel() for p in params) // g_t.n} floats a splat), not timed: one card "
+          f"has no peer")
+    out.update(per_band=per_band, bands_ms_sum=sum(band_ms), bands_ms_max=max(band_ms),
+               whole_ms=whole_ms, phase10_fwd_bwd_ms=p10, all_reduce_bytes=reduce_bytes)
+    del g_t, params, grads1, opt, step, tgt, target
+    torch.cuda.empty_cache()
+
+    # 19d. the dryrun on the card, and on the host CPU beside it
+    dry = dryrun_multichip(DRYRUN_BANDS, dev)
+    dry_cpu = dryrun_multichip(DRYRUN_BANDS, "cpu")
+    rel_l = abs(dry["loss"] - DRYRUN_LOSS) / DRYRUN_LOSS
+    rel_p = abs(dry["aux"]["n_pairs"] - DRYRUN_PAIRS) / DRYRUN_PAIRS
+    print(f"# sharded 19d: dryrun_multichip({DRYRUN_BANDS}) on the card: loss "
+          f"{dry['loss']:.6f} (MULTICHIP_r05 {DRYRUN_LOSS}, rel {rel_l:.1e}), cuts "
+          f"{dry['cuts']}, n_pairs {dry['aux']['n_pairs']} (r05 {DRYRUN_PAIRS}; the host CPU's "
+          f"{dry_cpu['aux']['n_pairs']}, loss {dry_cpu['loss']:.6f}), gradients against the "
+          f"whole image's {max(dry['grad_err'].values()):.1e} of the peak")
+    check(dry["cuts"] == DRYRUN_CUTS, f"dryrun: cuts {dry['cuts']}")
+    check(rel_l <= 1e-4, f"dryrun: loss {dry['loss']} not within 1e-4 of {DRYRUN_LOSS}")
+    check(rel_p <= 1e-3, f"dryrun: n_pairs {dry['aux']['n_pairs']} not within 0.1% of "
+          f"{DRYRUN_PAIRS}")
+    out["dryrun"] = dict(card=dry, cpu=dry_cpu)
+
+    # 19e. two gloo processes of two bands on the one card
+    mp_dir = os.path.join(OUT_DIR, "mp")
+    shutil.rmtree(mp_dir, ignore_errors=True)
+    os.makedirs(mp_dir)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "gsjax_torch.parallel.mp_worker", str(r),
+                               "2", os.path.join(mp_dir, "store"), mp_dir, "--device", str(dev)],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    logs = []
+    try:
+        for pr in procs:
+            try:
+                logs.append(pr.communicate(timeout=MP_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                fail(f"mp_worker: a process ran past {MP_TIMEOUT_S} s")
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    mp_s = time.perf_counter() - t0
+    check(all(pr.returncode == 0 for pr in procs), f"mp_worker failed: {logs}")
+    with open(os.path.join(mp_dir, "losses.txt")) as fh:
+        got = [float(v) for v in fh.read().split()]
+    want, frame = mp_worker.run(make_mesh(2 * mp_worker.BANDS_PER_RANK, dev))
+    frame_d = float(np.abs(np.load(os.path.join(mp_dir, "frame.npy")) - frame).max())
+    print(f"# sharded 19e: two gloo processes of {mp_worker.BANDS_PER_RANK} bands on the one card "
+          f"({mp_s:.1f} s): losses {got}; one process, {2 * mp_worker.BANDS_PER_RANK} bands: "
+          f"{want}; their render_sharded frames max |Δ| {frame_d:.1e}")
+    check(len(got) == len(want) and np.allclose(got, want, rtol=1e-5, atol=0),
+          f"mp_worker: losses {got} against {want}")
+    check(got[-1] < got[0], f"mp_worker: losses do not fall {got}")
+    check(frame_d <= 1e-6, f"mp_worker: render_sharded over the group differs by {frame_d}")
+    out["mp"] = dict(losses=got, one_process=want, frame_max_diff=frame_d, seconds=mp_s)
+    return out
+
+
 def _fmt(d: dict, digits: int = 4) -> dict:
     return {k: round(x, digits) for k, x in d.items()}
 
@@ -2437,6 +2776,12 @@ def main() -> int:
     t0 = time.perf_counter()
     viewer = viewer_phase(g, cfg, dev, card)
     print(f"# viewer: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # 19. the tile-sharded path: bands, the equalized step, the dryrun ---
+    t0 = time.perf_counter()
+    sharded = sharded_phase(g, cams, cfg, dev, card, train["stream"])
+    print(f"# sharded: {time.perf_counter() - t0:.2f} s")
     del g
 
     # A-F: kernel → the training run its launches are read from (A, B:
@@ -2450,6 +2795,8 @@ def main() -> int:
         backend, counter = key[r["name"]]
         r["launches"] = train[backend]["launches"][counter]
         r["run"] = "its path's training run"
+        if backend == "stream":  # phase 19's equalized step: once a band
+            r["sharded_launches"] = sharded["launches"][counter]
     results.sort(key=lambda r: list(key).index(r["name"]))  # A-F, D's class sum after D
     probe_results.sort(key=lambda r: PROBE_KERNELS.index(r["name"]))  # G-J
     for r in probe_results:
@@ -2465,7 +2812,8 @@ def main() -> int:
         json.dump(dict(card=card, kind=kind, kernels=results, frame_ms=frame_ms,
                        stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train,
                        probes=probe_detail, lazy=lazy, scene_io=scene_io, autotune=tuned,
-                       garden=garden, reference=reference, legacy=legacy, viewer=viewer),
+                       garden=garden, reference=reference, legacy=legacy, viewer=viewer,
+                       sharded=sharded),
                   fh, indent=1)
 
     print(json.dumps({"kernels": results}))

@@ -35,6 +35,14 @@ render/passes.py's depth_fade and splat_scale. The viewer loop: `controls`
 update, to_camera), render_trajectory(fade_in=True), and camera JSON
 (camera_from_json, cameras_from_json, camera_to_json).
 
+The tile-sharded mesh, as gsjax keeps it out of its top level: import
+gsjax_torch.parallel.mesh (make_mesh: tile-row bands over one process or
+a torch.distributed group; init_multihost) and
+gsjax_torch.parallel.render_sharded (render_sharded, make_train_step and
+its equalized and balanced forms: each band through kernels A-D, the
+gradients all-reduced); core/autotune.derive_row_cuts / derive_shard_caps
+size the bands; train.fit(mesh=...) trains through it.
+
   Gaussians, BandedGaussians, Camera, RenderConfig, render, render_oracle,
   OrbitCamera, controls, camera_from_json, camera_to_json,
   cameras_from_json, render_trajectory, render_orbit, train, FramePlan,

@@ -19,8 +19,10 @@ gsjax's arithmetic:
                              unchanged
 
 A load-time step: call it before rendering or training, never inside a
-step. derive_row_cuts and derive_shard_caps wait for the multi-device
-port.
+step. For the tile-sharded path (parallel/render_sharded.py),
+derive_row_cuts splits the tile rows into bands of equal candidate mass
+and derive_shard_caps sizes the bands' prefilter, slice and pair budgets
+from the same measured pass.
 """
 
 from __future__ import annotations
@@ -160,3 +162,112 @@ def derive_caps(g, cam, cfg: RenderConfig = RenderConfig(), slack: float = 1.2,
     pair_cap = _round_up(int(max(m["n_pairs"] for m in ms) * slack) + 128 * repack_rows, 128)
     return dataclasses.replace(cfg, fat_cap=fat_cap, fat_live_cap=fat_live_cap,
                                pair_cap=pair_cap, repack_w=w, repack_rows=repack_rows)
+
+
+# --------------------------------------------------------------------------
+# the tile-sharded path's bands and budgets
+# --------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def _rect_y_ranges(g, cam, cfg: RenderConfig):
+    """Each splat's footprint tile-row range (y0, y1) as host int arrays;
+    splats with no footprint get tiles_y + 4 for both (outside every
+    band)."""
+    tiles_x, tiles_y = cfg.tiles_x(cam.width), cfg.tiles_y(cam.height)
+    p = _project_any(g, cam.to(g.device), cfg)
+    _, y0, _, y1 = tile_rect(p.mean2d, p.radius, tiles_x, tiles_y, cfg.tile_size)
+    on = p.valid & (p.radius > 0)
+    out = torch.stack([torch.where(on, y0, tiles_y + 4), torch.where(on, y1, tiles_y + 4)])
+    y0, y1 = out.cpu().numpy()
+    return y0, y1
+
+
+def derive_row_cuts(g, cam, cfg: RenderConfig, n_devices: int, m=None,
+                    row_weight: float = 0.0) -> list:
+    """An equal-CONTENT tile-row partition: cuts [D+1] so every band holds
+    about the same per-tile candidate mass (what a band's cost follows
+    when its content is bounded by its live rows). For
+    make_train_step_equalized and derive_shard_caps(bands=...).
+    `row_weight` adds a constant per tile row (in candidate units) to the
+    mass; `m` (a measure_occupancy dict) skips measuring."""
+    if m is None:
+        m = measure_occupancy(g, cam, cfg)
+    row_cand = m["cand"].reshape(m["tiles_y"], m["tiles_x"]).sum(1) + float(row_weight)
+    cum = np.concatenate([[0], np.cumsum(row_cand)])
+    total = cum[-1]
+    cuts = [0]
+    for d in range(1, n_devices):
+        c = int(np.searchsorted(cum, total * d / n_devices))
+        cuts.append(min(max(c, cuts[-1] + 1), m["tiles_y"] - (n_devices - d)))
+    cuts.append(m["tiles_y"])
+    return cuts
+
+
+def derive_shard_caps(g, cam, cfg: RenderConfig, band_rows: int | None = None,
+                      origins=None, bands=None, slack: float = 1.25, m=None) -> RenderConfig:
+    """Measure the WORST band and return `cfg` with the tile-sharded
+    budgets sized from it at `slack` headroom:
+
+      * shard_prefilter_cap — the most splats whose rect reaches a band
+      * shard_slice_cap     — the most home rows in a band's halo range
+                              (+ room for the band layout's own copies)
+      * pair_cap            — the full image's live pairs scaled by the
+                              worst band's candidate share
+      * fat_cap / fat_live_cap scaled to the prefilter's share (where set)
+
+    The bands: `bands` = [(ty0, rows), ...] (an equal-content split), or
+    a uniform `band_rows` grid at `origins` (default: every band origin a
+    contiguous split of that size has). `m` (a measure_occupancy dict)
+    skips measuring. gsjax's arithmetic to the integer; repack_rows is
+    reset to None as there (inert in the port)."""
+    if m is None:
+        m = measure_occupancy(g, cam, cfg)
+    tiles_y, tiles_x = m["tiles_y"], m["tiles_x"]
+    if bands is None:
+        if band_rows is None:
+            raise ValueError("derive_shard_caps needs either band_rows (uniform grid) "
+                             "or bands=[(ty0, rows), ...]")
+        if origins is None:
+            origins = sorted({min(i * band_rows, tiles_y - band_rows)
+                              for i in range(_ceil(tiles_y, band_rows))})
+        bands = [(ty0, band_rows) for ty0 in origins]
+    y0, y1 = _rect_y_ranges(g, cam, cfg)
+    y0s, y1s = np.sort(y0), np.sort(y1)
+    n = y0.shape[0]
+
+    pref_cap = 0
+    for ty0, rows_b in bands:
+        # relevant = (y1 > ty0 - 1) & (y0 < ty0 + rows_b + 1)
+        ends_before = np.searchsorted(y1s, ty0 - 1, side="right")
+        starts_after = n - np.searchsorted(y0s, ty0 + rows_b + 1, side="left")
+        pref_cap = max(pref_cap, n - ends_before - starts_after)
+    pref_cap = _round_up(max(int(pref_cap * slack), 4096), 4096)
+
+    # home rows and candidate share of each band, from the full image's
+    # layout (a band's own layout has at most these rows)
+    seg, cand = m["seg"], m["cand"]
+    row_cand = cand.reshape(tiles_y, tiles_x).sum(1)
+    slice_cap, worst_share = 0, 0.0
+    for ty0, rows_b in bands:
+        r0, r1 = max(ty0 - 1, 0), min(ty0 + rows_b + 1, tiles_y)
+        slice_cap = max(slice_cap, int(seg[r1 * tiles_x] - seg[r0 * tiles_x]))
+        worst_share = max(worst_share,
+                          float(row_cand[ty0:ty0 + rows_b].sum()) / max(float(cand.sum()), 1.0))
+    # the band's layout appends its own copy rows: room for them
+    slice_cap = _round_up(max(int(slice_cap * slack) + 8192, 8192), 4096)
+    pair_cap = _round_up(int(m["n_pairs"] * min(worst_share * slack * 1.15, 1.0)) + 65536, 128)
+
+    # the fat budgets scale to the worst band too, or a band's layout
+    # runs at the full scene's size whatever the prefilter keeps
+    pref_share = min(pref_cap / max(n, 1), 1.0)
+    fat_cap = cfg.fat_cap
+    if fat_cap is not None:
+        fat_cap = min(_round_up(max(int(fat_cap * pref_share * slack), 8192), 8192),
+                      (1 << 24) - 8192)
+    fat_live_cap = cfg.fat_live_cap
+    if fat_live_cap is not None:
+        fat_live_cap = _round_up(max(int(fat_live_cap * pref_share * slack), 4096), 4096)
+    return dataclasses.replace(cfg, shard_prefilter_cap=pref_cap, shard_slice_cap=slice_cap,
+                               pair_cap=pair_cap, fat_cap=fat_cap, fat_live_cap=fat_live_cap,
+                               repack_rows=None)

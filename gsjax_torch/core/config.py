@@ -14,14 +14,19 @@ Knobs that size TPU-only machinery are accepted and have no effect here:
   stream_oh_cache — VMEM band scratch, DMA chunking, grid-step grouping
       and one-hot caching of the TPU stream kernels; the CUDA blend reads
       its attributes straight from device memory, so there is no band
-      scratch and `n_band_overflow` always reads 0;
+      scratch (`n_band_overflow` counts only the tile-sharded path's
+      prefilter and slice drops);
   stream_exact_table — the port's blend always reads exact f32
       attributes (the TPU needed a bf16 split table for its MXU gather);
   pair_repack, repack_w, repack_q, repack_cap, repack_rows — the TPU's
       2-D row-sort replacement for a slow global sort; the port sorts
       pairs with one stable sort, so `n_repack_overflow` always reads 0.
-The tile-sharded fields (band_*_slack, shard_*_cap) wait for the
-multi-device port.
+The tile-sharded fields size the band mesh's static budgets
+(gsjax_torch/parallel/render_sharded.py): band_prefilter_slack /
+shard_prefilter_cap the splats a band keeps before its home layout
+(homesort.band_prefilter), band_slice_slack / shard_slice_cap the home
+rows it keeps after (homesort.slice_band_rows); a None cap is sized from
+the slack, core/autotune.derive_shard_caps measures both.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ class RenderConfig:
     repack_q: int | None = None
     repack_cap: int | None = None
     repack_rows: int | None = None
-    # --- tile-sharded path (not ported yet) ---
+    # --- tile-sharded path (parallel/render_sharded.py) ---
     band_prefilter_slack: float = 2.5
     band_slice_slack: float = 2.0
     shard_prefilter_cap: int | None = None

@@ -29,7 +29,9 @@ from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.render.common import (MAX_TILES, box_inside, box_qmin, clamp_rect_to_span,
                                        depth_bits, tile_rect)
-from gsjax_torch.render.homesort import cull_threshold, sort_key
+from gsjax_torch.render.homesort import (band_prefilter, band_prefilter_cap, band_slice_cap,
+                                         build_home_layout, cull_threshold, slice_band_rows,
+                                         sort_key)
 from gsjax_torch.render.project import ProjectedSplats
 
 INVALID_TILE = 0x7FFFFFFF  # dead pairs: sorts after every real tile id
@@ -296,9 +298,13 @@ def span_clamped_pairs(p: ProjectedSplats, cfg: RenderConfig, anchor: str,
 
 def build_tile_bins(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
                     ty0: int = 0, band_rows: int | None = None,
-                    anchor: str = "rect", layout=None) -> TileBins:
+                    anchor: str = "rect", layout=None,
+                    rows_live: int | None = None) -> TileBins:
     """Bin `p` into tile rows [ty0, ty0 + band_rows) (the whole image by
-    default).
+    default). `rows_live` (the home anchor only; default band_rows)
+    bounds kernel B's band check to [ty0, ty0 + rows_live), a band's
+    owned rows under an equal-content split, while the bins keep
+    tiles_x·band_rows tiles (those past rows_live stay empty).
 
     With anchor="home" and an exact-footprint `layout`
     (homesort.build_home_layout, footprint_clamp=False), `p` are the
@@ -319,7 +325,9 @@ def build_tile_bins(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
     if anchor == "home" and layout is not None and not cfg.footprint_clamp:
         if cfg.tile_span % 2 != 1:
             raise ValueError("anchor='home' requires an odd tile_span")
-        pid_live, key = expand_live_pairs(p, layout, ty0, band_rows, tiles_x, cfg)
+        pid_live, key = expand_live_pairs(p, layout, ty0,
+                                          band_rows if rows_live is None else rows_live,
+                                          tiles_x, cfg)
         n_clamped = torch.zeros((), dtype=torch.int32, device=dev)  # budgets live in the layout
     else:
         pid_live, key, n_clamped = span_clamped_pairs(p, cfg, anchor, ty0, band_rows,
@@ -341,3 +349,60 @@ def build_tile_bins(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
         tiles_x=tiles_x,
         band_rows=band_rows,
     )
+
+
+def build_band_bins(p: ProjectedSplats, cam: Camera, cfg: RenderConfig, ty0: int, band: int,
+                    rows_live: int | None = None, restrict: bool | None = None,
+                    return_extras: bool = False, on_stage=None):
+    """A band's stream chain from projected splats to its pairs, the one
+    copy of the band's cap rules (parallel.render_sharded._render_band,
+    lazy.build_band_plan): band_prefilter to cap_n splats (cfg's
+    shard_prefilter_cap, else band_prefilter_cap at band_prefilter_slack,
+    at most N rounded up to 4096), the home layout (kernel A),
+    slice_band_rows to cap home rows (shard_slice_cap, else
+    band_slice_cap at band_slice_slack), and build_tile_bins (kernel B)
+    with its band check on [ty0, ty0 + rows_live). `restrict` (default:
+    the band is narrower than the image) runs the prefilter and the
+    slice; without them the layout is the whole image's.
+
+    Returns (p_home, layout, bins, n_pref, n_sliced), the prefilter's
+    and the slice's drops; with return_extras (restrict must hold) also
+    build_home_layout's extras with "gidx" (each prefiltered row's
+    splat), "src_band" (src_sorted's window) and "start" (the window's
+    first home row). on_stage(name, out), when given, is called after
+    each stage with what it made: "prefilter" and "home_layout" and
+    "slice" with their splats, "bins_sort" with the bins."""
+    tiles_y, tiles_x = cfg.tiles_y(cam.height), cfg.tiles_x(cam.width)
+    if rows_live is None:
+        rows_live = band
+    if restrict is None:
+        restrict = band < tiles_y
+    if return_extras and not restrict:
+        raise ValueError("return_extras needs the prefilter and the slice (restrict=True)")
+    lap = on_stage or (lambda name, out: None)
+    n_pref = n_sliced = 0
+    if restrict:
+        n = p.depth.shape[0]
+        cap_n = cfg.shard_prefilter_cap or band_prefilter_cap(n, tiles_y, band,
+                                                              cfg.band_prefilter_slack)
+        cap_n = min(cap_n, -(-n // 4096) * 4096)
+        p, n_pref, *gidx = band_prefilter(p, ty0, rows_live, tiles_y, tiles_x, cap_n, cfg,
+                                          return_idx=return_extras)
+        lap("prefilter", p)
+    p, layout, *extras = build_home_layout(p, cam, cfg, return_extras=return_extras)
+    lap("home_layout", p)
+    if restrict:
+        cap = cfg.shard_slice_cap or band_slice_cap(layout.perm.shape[0], tiles_y, band,
+                                                    cfg.band_slice_slack)
+        rows = (extras[0]["src_sorted"],) if return_extras else ()
+        p, layout, n_sliced, *window = slice_band_rows(p, layout, ty0, band, cap, rows_live,
+                                                       extra_rows=rows)
+        lap("slice", p)
+    bins = build_tile_bins(p, cam, cfg, ty0=ty0, band_rows=band, anchor="home", layout=layout,
+                           rows_live=rows_live)
+    lap("bins_sort", bins)
+    if not return_extras:
+        return p, layout, bins, n_pref, n_sliced
+    (src_band,), start = window
+    return p, layout, bins, n_pref, n_sliced, dict(extras[0], gidx=gidx[0], src_band=src_band,
+                                                   start=start)

@@ -17,6 +17,11 @@ gradient routes back through the inverse sort permutation, and a copy
 row's gradient sums onto its parent (`reduce_copy_segments`), so a fat
 splat's parent gets the gradient of every block it covers.
 
+The tile-sharded path (parallel/render_sharded.py) cuts a band's share
+out on both sides of the layout: `band_prefilter` keeps the splats that
+can reach the band before it (a gather whose backward is a gather, no
+scatter-add), `slice_band_rows` the band's contiguous home rows after it.
+
 Kernel A (`repeat_fat_parents`, csrc/repeat.cu) replaces the TPU's
 gsjax/render/homesort.py::_repeat_kernel.
 """
@@ -541,3 +546,138 @@ def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
     extras = {"inv": inv_ext[:n], "inv_tail": inv_ext[n:], "seg_base": seg_base,
               "parent_of_slot": parent, "src_sorted": src_sorted}
     return p_home, layout, extras
+
+
+# --------------------------------------------------------------------------
+# the tile-sharded path: a band's prefilter and slice
+# --------------------------------------------------------------------------
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class _BandSelect(torch.autograd.Function):
+    """packed[idx] whose backward is a gather through `inv` (not autograd's
+    indexing VJP, an index_put with accumulate): `idx` [cap] are unique
+    source rows (dead slots point at the zero pad row N), `inv` [N] each
+    source row's output position (≥ cap: not selected, zero gradient)."""
+
+    @staticmethod
+    def forward(ctx, packed, idx, inv):
+        ctx.save_for_backward(inv)
+        ctx.n_pad = packed.shape[0]
+        return packed[idx]
+
+    @staticmethod
+    def backward(ctx, d):
+        (inv,) = ctx.saved_tensors
+        cap = d.shape[0]
+        dpad = torch.cat([d, torch.zeros_like(d[:1])])
+        dx = dpad[torch.clamp(inv, max=cap)]
+        return torch.nn.functional.pad(dx, (0, 0, 0, ctx.n_pad - dx.shape[0])), None, None
+
+
+def band_prefilter_cap(n: int, tiles_y: int, band_rows: int, slack: float = 2.5) -> int:
+    """Static splat budget of band_prefilter: the band's proportional
+    share (band + 2 halo rows) times `slack` for density skew, rounded to
+    4096."""
+    cap = _ceil_to(int(n * (band_rows + 2) / max(tiles_y, 1) * slack), 4096)
+    return min(_ceil_to(n, 4096), max(cap, 4096))
+
+
+def band_prefilter(p: ProjectedSplats, ty0: int, band_rows: int, tiles_y: int,
+                   tiles_x: int, cap_n: int, cfg: RenderConfig, return_idx: bool = False):
+    """The splats whose footprint rect can reach the tile-row band
+    [ty0 − 1, ty0 + band_rows + 1), compacted in index order to a static
+    [min(cap_n, N)] prefix BEFORE build_home_layout, so a band's whole
+    prologue runs on its share of the scene. Rows past the relevant ones
+    are invalid zero rows (the pad row N). Relevant splats beyond cap_n
+    are dropped far-index-first and counted. Gradients flow back through
+    _BandSelect's gather.
+
+    Returns (p_band, n_dropped); with return_idx also idx [min(cap_n, N)]
+    i64, each row's splat (N for a pad row)."""
+    n = p.depth.shape[0]
+    dev = p.depth.device
+    _, y0, _, y1 = tile_rect(p.mean2d.detach(), p.radius.detach(), tiles_x, tiles_y,
+                             cfg.tile_size)
+    relevant = p.valid & (y1 > ty0 - 1) & (y0 < ty0 + band_rows + 1)
+    # unique keys: relevant splats keep their index, the rest shift by N,
+    # so the sorted keys ARE the compacted order; the inverse is a scatter
+    # of unique indices (deterministic)
+    iota = torch.arange(n, device=dev)
+    order_full = torch.sort(torch.where(relevant, iota, n + iota)).values
+    inv_full = torch.empty_like(iota)
+    inv_full[torch.where(order_full < n, order_full, order_full - n)] = iota
+    order = order_full[:cap_n]
+    live = order < n
+    idx = torch.where(live, order, n)
+    # a splat that is not relevant may sit below cap_n when the band
+    # underfills it: its row is the zero pad, so its cotangent must not
+    # route back
+    inv_full = torch.where(relevant, inv_full, cap_n)
+    n_dropped = torch.clamp(relevant.sum() - cap_n, min=0).to(torch.int32)
+    packed = torch.cat([p.mean2d, p.depth[:, None], p.conic, p.radius[:, None], p.rgb,
+                        p.opacity[:, None]], dim=-1)  # [N, 11]
+    packed = torch.cat([packed, torch.zeros_like(packed[:1])])
+    pb = _BandSelect.apply(packed, idx, inv_full)
+    p_band = ProjectedSplats(
+        mean2d=pb[:, 0:2], depth=pb[:, 2], conic=pb[:, 3:6],
+        radius=torch.where(live, pb[:, 6], 0.0), rgb=pb[:, 7:10], opacity=pb[:, 10],
+        valid=live,
+    )
+    if return_idx:
+        return p_band, n_dropped, idx
+    return p_band, n_dropped
+
+
+def band_slice_cap(nh: int, tiles_y: int, band_rows: int, slack: float = 2.0) -> int:
+    """Static home-row budget of slice_band_rows: the band's proportional
+    share (band + 2 halo rows) times `slack`, rounded to 4096."""
+    cap = _ceil_to(int(nh * (band_rows + 2) / max(tiles_y, 1) * slack), 4096)
+    return min(_ceil_to(nh, 4096), max(cap, 4096))
+
+
+def slice_band_rows(p: ProjectedSplats, layout: HomeLayout, ty0: int, band_rows: int,
+                    cap: int, rows_live: int | None = None, extra_rows=()):
+    """Restrict the home layout to the home rows of tile rows [ty0 − 1,
+    ty0 + rows_live + 1) (rows_live defaults to band_rows): the rows that
+    can emit pairs into the band's live rows. They are contiguous in the
+    (home, depth) order, so this is one window of `cap` rows (the start
+    read to the host once), a view of each array: its gradient is zero
+    outside the window, as dynamic_slice's transpose pads it. Rows past
+    cap are dropped far-end-first and counted (n_dropped); rows outside
+    the band that ride along are masked by kernel B's band check.
+
+    seg_starts becomes band-local, [(band_rows + 2)·tiles_x + 1] entries
+    from tile row ty0 − 1, gathered at indices clamped to tiles_x·tiles_y
+    (the end of the live rows), so a band past the image's last row reads
+    no dead segment and an uneven split never shifts the table by a part
+    of a row. Returns (p_band, layout_band, n_dropped); with extra_rows
+    (per-home-row tensors) also those tensors' windows and the window's
+    start."""
+    tiles_x, tiles_y = layout.tiles_x, layout.tiles_y
+    nh = layout.perm.shape[0]
+    cap = min(cap, nh)
+    if rows_live is None:
+        rows_live = band_rows
+    r0 = min(max(ty0 - 1, 0), tiles_y)
+    r1 = min(max(ty0 + rows_live + 1, 0), tiles_y)
+    start, end = layout.seg_starts[[r0 * tiles_x, r1 * tiles_x]].tolist()
+    start_c = min(start, max(nh - cap, 0))
+    dev = layout.seg_starts.device
+    n_dropped = torch.tensor(max(end - start_c - cap, 0), dtype=torch.int32, device=dev)
+    idx = torch.clamp(r0 * tiles_x + torch.arange((band_rows + 2) * tiles_x + 1, device=dev),
+                      max=tiles_x * tiles_y)
+    seg_local = torch.clamp(layout.seg_starts[idx] - start_c, 0, cap).to(torch.int32)
+    sl = lambda a: a[start_c:start_c + cap]
+    p2 = ProjectedSplats(mean2d=sl(p.mean2d), depth=sl(p.depth), conic=sl(p.conic),
+                         radius=sl(p.radius), rgb=sl(p.rgb), opacity=sl(p.opacity),
+                         valid=sl(p.valid))
+    layout2 = dataclasses.replace(layout, perm=sl(layout.perm), seg_starts=seg_local,
+                                  home_x=sl(layout.home_x), home_y=sl(layout.home_y),
+                                  win=sl(layout.win))
+    if extra_rows:
+        return p2, layout2, n_dropped, [sl(a) for a in extra_rows], start_c
+    return p2, layout2, n_dropped

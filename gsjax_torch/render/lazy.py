@@ -33,8 +33,12 @@ kernel A copies into the exact path's tail rows.
 The TPU's pid windows, band DMA table and bf16 split table (`pidwin`,
 `tile_of`, `cbase`, `blktab`) feed only the TPU kernels and have no
 counterpart; kernels C and D read the plan's pair stream and the fresh
-f32 attribute table directly. The band plans of the tile-sharded path
-wait for the multi-device port.
+f32 attribute table directly. `build_band_plan` is a band's resort on
+the tile-sharded path (band_prefilter, home layout, slice_band_rows, the
+band's pairs): its pidx maps the band's home rows to the global splats,
+so extract_home and lazy_render take it unchanged; its inverse structure
+is the band's own (a fold back across bands is not defined, as in the
+reference).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import torch
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.core.gaussians import FIELDS, Gaussians
-from gsjax_torch.render.binning import build_tile_bins
+from gsjax_torch.render.binning import build_band_bins, build_tile_bins
 from gsjax_torch.render.composite import assemble_band, clipped_pair_stream
 from gsjax_torch.render.homesort import build_home_layout, reduce_copy_segments
 from gsjax_torch.render.pipeline import _project_any
@@ -130,6 +134,59 @@ def build_frame_plan(g: Gaussians, cam: Camera, cfg: RenderConfig) -> FramePlan:
         ty0=bins.ty0,
         tiles_x=bins.tiles_x,
         band_rows=bins.band_rows,
+        n=n,
+    )
+
+
+def build_band_plan(g: Gaussians, cam: Camera, cfg: RenderConfig, ty0: int,
+                    band_rows: int, rows_live: int | None = None) -> FramePlan:
+    """A band's resort for the tile-sharded lazy path: the chain of
+    binning.build_band_bins, which _render_band runs (band_prefilter →
+    home layout → slice_band_rows → the band's pairs, kernels A and B),
+    always prefiltered and sliced, frozen into a
+    FramePlan of the band [ty0, ty0 + band_rows), content bounded to
+    [ty0, ty0 + rows_live) (default band_rows). pidx maps each home row
+    to its GLOBAL splat (the prefilter's idx composed with the band's
+    source index), so extract_home and lazy_render take the plan as they
+    take a frame's; inv / inv_tail / seg_base are the prefiltered scene's,
+    rebased to the band's window (≥ NH: outside it). ovf counts the
+    prefilter's and the slice's drops in n_band_overflow."""
+    if cfg.tile_span != 3 or cfg.footprint_clamp:
+        raise ValueError("band plans require the exact stream path")
+    cam = cam.to(g.device)
+    tiles_x = cfg.tiles_x(cam.width)
+    with torch.no_grad():
+        p = _project_any(g, cam, cfg)
+        n = p.depth.shape[0]
+        ph, layout, bins, n_pref, n_sliced, extras = build_band_bins(
+            p, cam, cfg, ty0, band_rows, rows_live, restrict=True, return_extras=True)
+        pid, starts, n_dropped = clipped_pair_stream(bins, cfg)
+        gidx, start_c = extras["gidx"], extras["start"]
+        gpad = torch.cat([gidx, gidx.new_full((1,), n)])
+        gsrc = gpad[torch.clamp(extras["src_band"], max=gpad.shape[0] - 1)]
+        cap_h = ph.depth.shape[0]
+        rebase = lambda inv: torch.where((inv >= start_c) & (inv < start_c + cap_h),
+                                         inv - start_c, cap_h)
+    zero = torch.zeros((), dtype=torch.int32, device=g.device)
+    return FramePlan(
+        pidx=torch.where(ph.valid, gsrc, n),
+        inv=rebase(extras["inv"]),
+        inv_tail=rebase(extras["inv_tail"]),
+        seg_base=extras["seg_base"],
+        home_x=layout.home_x,
+        home_y=layout.home_y,
+        pid=pid,
+        starts=starts,
+        ovf={
+            "n_pair_overflow": (n_dropped + bins.n_repack_overflow).to(torch.int32),
+            "n_band_overflow": (n_pref + n_sliced).to(torch.int32),
+            "n_fat_overflow": layout.n_fat_overflow,
+            "n_tile_overflow": zero,
+            "n_pairs": bins.n_pairs,
+        },
+        ty0=ty0,
+        tiles_x=tiles_x,
+        band_rows=band_rows,
         n=n,
     )
 

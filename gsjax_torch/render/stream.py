@@ -557,7 +557,10 @@ def composite_tiles_stream(p, layout, bins, cam, cfg: RenderConfig):
         "n_pairs": bins.n_pairs,
         "n_tile_overflow": zero,
         "n_pair_overflow": n_dropped + bins.n_repack_overflow,
-        "n_band_overflow": zero,  # no band scratch in the port
+        # no band scratch in the port: the tile-sharded path
+        # (parallel/render_sharded._render_band) adds its band's prefilter
+        # and slice drops
+        "n_band_overflow": zero,
         "n_fat_overflow": layout.n_fat_overflow,
     }
     return img, aux

@@ -14,7 +14,8 @@ reference donates them to a jitted step and returns new ones).
 
 Checkpoints are `torch.save` files of the module's and the optimizer's
 state dicts plus the step; the reference's orbax format is not carried
-over. Tile-sharded training waits for the multi-device port.
+over. With a band mesh (parallel/mesh.py), fit trains through the
+tile-sharded step (parallel/render_sharded.make_train_step).
 """
 
 from __future__ import annotations
@@ -69,16 +70,22 @@ def make_step_fn(cam: Camera, cfg: RenderConfig, optimizer):
 def fit(g: Gaussians, cameras, targets, cfg: RenderConfig = RenderConfig(),
         steps: int = 100, optimizer=None, mesh=None, log_every: int = 0):
     """Fit `g` to the (cameras[i], targets[i]) pairs, cycling through the
-    views; each step renders its own view's camera. Returns
-    (TrainState, losses). `g` is trained in place."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "tile-sharded training is not ported yet: ROADMAP queue 1 "
-            "'multi-device'"
-        )
+    views; each step renders its own view's camera. With `mesh` (a band
+    mesh, parallel/mesh.make_mesh) each step is the tile-sharded one, whose
+    loss is the squared error over the tile-rounded image's pixels (the
+    mean when the image is whole tiles). Returns (TrainState, losses).
+    `g` is trained in place."""
     optimizer = optimizer or default_optimizer(g)
-    tgts = [torch.as_tensor(t, dtype=torch.float32, device=g.device) for t in targets]
-    step_fns = [make_step_fn(cam, cfg, optimizer) for cam in cameras]
+    if mesh is None:
+        tgts = [torch.as_tensor(t, dtype=torch.float32, device=g.device) for t in targets]
+        step_fns = [make_step_fn(cam, cfg, optimizer) for cam in cameras]
+    else:
+        from gsjax_torch.parallel.render_sharded import make_train_step, pad_target
+
+        tgts = [pad_target(cfg, cam, t, mesh.n_bands, device=g.device)
+                for cam, t in zip(cameras, targets)]
+        sharded = [make_train_step(cam, cfg, mesh, optimizer) for cam in cameras]
+        step_fns = [lambda g, t, f=f: f(g, t)[0] for f in sharded]
     losses = []
     for s in range(steps):
         i = s % len(cameras)

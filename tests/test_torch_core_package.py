@@ -40,21 +40,25 @@ def test_package_imports_no_jax():
     walked = {line.split()[1] for line in res.stdout.splitlines() if line.startswith("walked")}
     for m in ("io.native", "io.ply", "io.qply", "io.splat", "io.stream", "core.autotune",
               "core.banded", "core.transforms", "render.oracle", "render.passes",
-              "camera.controls", "camera.json_io"):
+              "camera.controls", "camera.json_io", "parallel.mesh", "parallel.render_sharded",
+              "parallel.dryrun", "parallel.mp_worker"):
         assert f"gsjax_torch.{m}" in walked, m
 
 
 def test_unported_paths_raise(rng):
-    """The one entry point left to port, tile-sharded training
-    (train.fit(mesh=...)), raises naming its ROADMAP item; the paths that
+    """No entry point raises as unported any more: tile-sharded training
+    (train.fit(mesh=...)) takes a step over a band mesh; the paths that
     raised before the reference backends and the viewer loop were ported
     run: the oracle and xla backends, forward and backward, legacy mode
     and passes on every backend, and the fade-in."""
+    from gsjax_torch.parallel.mesh import make_mesh
+
     gp = tsynth.bonsai_like(n=200, seed=0, device="cpu")
     cam = gt.Camera.create(position=(0.0, 0.0, -4.0), fx=60.0, fy=60.0,
                            width=32, height=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gt.train.fit(gp, [cam], [torch.zeros(32, 32, 3)], steps=1, mesh=object())
+    _, losses = gt.train.fit(gp, [cam], [torch.zeros(32, 32, 3)], steps=1,
+                             mesh=make_mesh(2, "cpu"))
+    assert len(losses) == 1 and np.isfinite(losses[0])
     # every backend's backward reaches every field, exact and legacy
     for backend in ("oracle", "xla", "stream", "pallas"):
         for clamp in (False, True):

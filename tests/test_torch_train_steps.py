@@ -73,8 +73,15 @@ def test_fit_recovers_perturbation():
                            optimizer=torch.optim.Adam(g.parameters(), 3e-4))
     assert state.step == 60 and state.gaussians is g
     assert losses[-1] < losses[0] * 0.7, (losses[0], losses[-1])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tt.fit(g, cams, targets, cfg, steps=1, mesh=object())
+    # with a band mesh (3 bands of one tile row) the step's loss is the
+    # same mean over the image (whole tiles)
+    from gsjax_torch.parallel.mesh import make_mesh
+
+    with torch.no_grad():
+        loss = float(torch.mean((gt.render(g, cams[0], cfg) - targets[0]) ** 2))
+    _, l_mesh = tt.fit(g, cams, targets, cfg, steps=1, mesh=make_mesh(3, "cpu"),
+                       optimizer=torch.optim.Adam(g.parameters(), 3e-4))
+    assert l_mesh[0] == pytest.approx(loss, rel=1e-5)
 
 
 def test_checkpoint_roundtrip(tmp_path):

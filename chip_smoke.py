@@ -206,10 +206,28 @@ Phases (any failure exits non-zero; there is no CPU path):
                processes of 2 bands on the one card (120 s each) against
                one process's 4-band mesh, rtol 1e-5, the loss falling,
                their render_sharded frame within 1e-6 of the process's.
+ 20. examples — the example apps (gsjax_torch.examples). 20a: each
+               app's run() at the reference example's sizes on the card,
+               and on the CPU in a process of its own: frames within C's
+               gate, the .splat files written within the format's rule
+               (positions bit-equal, scales within the exp∘log round
+               trips between them, u8 one step), train_fit's first loss within
+               1e-6 relative and its last within 2%, falling on both,
+               sharded_render's frame and loss within 1e-5, overflow 0,
+               the kernels each card run launched as app_launches says
+               (A, B a measuring pass and a render, C a stream render, D
+               and D' a step; the sharded xla path A, B a band and no C);
+               20b: the demo scene at 1,200,000 splats, SH degree 3,
+               written as .ply and .splat and run through the file apps:
+               overflow 0, the orbit's frames distinct and lit, the files
+               written back re-loading equal to the source, seconds, peak
+               GiB and the measured demand of each; 20c: python -m
+               gsjax_torch.examples.simple_viewer as a process: rc 0, 8
+               PNGs.
 Prints the kernels' JSON line (A-J and D's class sum, each with its
 time, its plain version's, its bound and its launches: A-F in their
 path's training run (A-D and D' also `sharded_launches`, phase 19's
-step), G-J in their probe's timed run in phase 11; a probe's times and bound
+step, and `examples_launches`, phase 20a's card runs summed), G-J in their probe's timed run in phase 11; a probe's times and bound
 are summed over its variants or class counts, one launch of each; its
 bound_by is its roofline's limit, and beside it roofline_ms, floor_ms,
 floor_part, limit and least_floor_bound_ms), then
@@ -266,6 +284,12 @@ FLAT_FIXED_STEPS = 4
 SHARD_BANDS, DRYRUN_BANDS = 4, 8
 DRYRUN_CUTS, DRYRUN_LOSS, DRYRUN_PAIRS = [0, 8, 9, 10, 11, 12, 13, 14, 16], 0.019779, 2538
 MP_TIMEOUT_S = 120  # each worker process's limit
+# phase 20: the example apps' demo scene at full size, and the app run as
+# a process of its own
+EXAMPLE_SPLATS, EXAMPLE_SH_DEGREE = 1_200_000, 3
+EXAMPLE_TIMEOUT_S = 120
+EXAMPLE_CPU_TIMEOUT_S = 600  # phase 20a's CPU side, after the card's 20a-20c
+EXAMPLE_CPU_THREADS = 6  # of the chip machine's 8 cores
 # the kernels each path launches (LAUNCHES keys) serving, and besides
 # those when training
 SERVE_KERNELS = {"stream": ("repeat", "expand", "stream_fwd"),
@@ -2114,6 +2138,301 @@ def sharded_phase(g, cams, cfg, dev, card, unsharded) -> dict:
     return out
 
 
+def splat_diff(a: bytes, b: bytes) -> dict:
+    """Two .splat files of one scene, row by row: bit-equal or not, the
+    positions bit-equal or not, the scales' largest distance in ulps and
+    in round trips (scale_trips: |Δs| over s·2^-22·(|ln s| + 1), the most
+    one exp∘log of s moves it with the card's logf and expf within 2 ulps
+    each: a .splat stores s = exp(log_scale), and a loader takes its log
+    again), the u8 columns' largest step and the share of those bytes
+    that differ (a rounded activation an ulp apart may cross a .5)."""
+    import numpy as np
+
+    if len(a) != len(b):
+        return dict(bit_equal=False, rows=(len(a) // 32, len(b) // 32))
+    ra, rb = (np.frombuffer(x, np.uint8).reshape(-1, 32) for x in (a, b))
+    sa, sb = (r[:, 12:24].copy().view(np.int32).astype(np.int64) for r in (ra, rb))
+    fa, fb = (r[:, 12:24].copy().view(np.float32).astype(np.float64) for r in (ra, rb))
+    trips = np.abs(fa - fb) / (np.abs(fb) * 2.0**-22 * (np.abs(np.log(fb)) + 1))
+    u8 = np.abs(ra[:, 24:].astype(np.int64) - rb[:, 24:].astype(np.int64))
+    return dict(bit_equal=a == b, means_equal=bool(np.array_equal(ra[:, :12], rb[:, :12])),
+                scale_ulps=int(np.abs(sa - sb).max(initial=0)),
+                scale_trips=float(trips.max(initial=0)), u8_step=int(u8.max(initial=0)),
+                u8_share=float((u8 > 0).mean()) if u8.size else 0.0)
+
+
+def splat_close(d: dict, trips: int) -> bool:
+    """splat_diff of a file against one `trips` exp∘log round trips away:
+    positions bit-equal, the scales within that many round trips (see
+    splat_diff), the u8 columns within one step on under 1% of them."""
+    return d["bit_equal"] or (d.get("means_equal", False) and d["scale_trips"] <= trips
+                              and d["u8_step"] <= 1 and d["u8_share"] < 0.01)
+
+
+def app_launches(name: str, res: dict) -> dict:
+    """The kernels an example app's run launches on the card (LAUNCHES
+    keys, nonzero only): A and B once a measuring pass and once a render
+    (a band's, in sharded_render) with the exact layout, C once a stream
+    render, D and D's class sum once a training step."""
+    if name == "ply_converter":
+        return {}
+    passes, renders = res["demand"]["passes"], res["renders"]
+    if name == "sharded_render":  # derive_shard_caps' pass; a render and a step of 8 bands
+        ab = passes + 1 + 2 * 8
+        return {"repeat": ab, "expand": ab}
+    want = {"repeat": passes + renders, "expand": passes + renders, "stream_fwd": renders}
+    if name == "train_fit":
+        want.update(stream_bwd=len(res["losses"]), stream_class_sum=len(res["losses"]))
+    return want
+
+
+EXAMPLE_APPS = ("simple_viewer", "file_loader", "ply_converter", "scene_transformations",
+                "camera_updates", "train_fit", "sharded_render")
+
+
+def examples_on_cpu(tmp: str) -> None:
+    """Phase 20a's CPU side, run in a process of its own beside the card's
+    runs (EXAMPLE_CPU_THREADS threads: the rest of the host's cores drive
+    the card): each app's run() on the CPU at the reference example's
+    sizes, its outputs under tmp/<app>_cpu, its results pickled to
+    tmp/cpu.pkl."""
+    import importlib
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(EXAMPLE_CPU_THREADS)
+    res = {}
+    for name in EXAMPLE_APPS:
+        app = importlib.import_module(f"gsjax_torch.examples.{name}")
+        t0 = time.perf_counter()
+        res[name] = app.run(device="cpu", out=os.path.join(tmp, f"{name}_cpu"))
+        res[name]["s"] = time.perf_counter() - t0
+        res[name]["dir"] = os.path.join(tmp, f"{name}_cpu")
+    with open(os.path.join(tmp, "cpu.pkl"), "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def examples_phase(dev, card) -> dict:
+    """20. The example apps (gsjax_torch.examples) on the card.
+
+    20a: each app's run() at the reference example's own sizes on the
+    card, and on the CPU in a process of its own started first
+    (examples_on_cpu: it runs while the card runs 20a-20c): the card's
+    float frames within C's gate of the CPU's; the .splat files by
+    splat_close, two exp∘log round trips apart (transformed.splat's floats
+    within 1e-6 of each column's peak); train_fit's loss0 within 1e-6 relative, view 0's loss falling
+    on both, the two final losses within 2%; sharded_render's frame
+    within 1e-5 and loss within 1e-5 relative; every overflow counter 0;
+    the counters, zeroed before each card run and read after, as
+    app_launches says (> 0 where it names a kernel).
+
+    20b: the demo scene at EXAMPLE_SPLATS splats and SH degree
+    EXAMPLE_SH_DEGREE written as .ply and .splat, then simple_viewer
+    (.ply), file_loader (.splat and .ply), ply_converter,
+    scene_transformations (.splat) and camera_updates (.ply) on those
+    files: every overflow counter 0; the launches as in 20a; the orbit's frames distinct and
+    lit; the .ply re-loads bit-equal to the scene, the .splat written
+    back from the .ply (and converted.splat) bit-equal to the source
+    .splat, the one from the .splat by splat_close, one exp∘log round trip
+    from it; each app's seconds,
+    peak GiB and measured demand printed.
+
+    20c: `python -m gsjax_torch.examples.simple_viewer --out DIR` as a
+    process of its own (EXAMPLE_TIMEOUT_S): rc 0 and 8 PNGs.
+
+    The files live in a temporary directory that is removed afterwards."""
+    import importlib
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import kernels
+    from gsjax_torch.examples._common import OVERFLOW_KEYS, demo_scene
+    from gsjax_torch.io.ply import save_ply
+
+    apps = {name: importlib.import_module(f"gsjax_torch.examples.{name}")
+            for name in EXAMPLE_APPS}
+    zero = dict.fromkeys(OVERFLOW_KEYS, 0)
+    out = {"20a": {}, "20b": {}}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="examples_", dir=OUT_DIR)
+    cpu_log = open(os.path.join(tmp, "cpu.log"), "w")
+    cpu = subprocess.Popen([sys.executable, "-c", "import chip_smoke; "
+                            f"chip_smoke.examples_on_cpu({tmp!r})"], cwd=ROOT,
+                           stdout=cpu_log, stderr=subprocess.STDOUT)
+    try:
+        def read(path):
+            with open(path, "rb") as fh:
+                return fh.read()
+
+        # 20a, the card's side: the reference examples' sizes
+        card_res = {}
+        for name, app in apps.items():
+            where = os.path.join(tmp, f"{name}_card")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = app.run(device=dev, out=where)
+            torch.cuda.synchronize()
+            res.update(s=time.perf_counter() - t0, dir=where,
+                       launched=nonzero(kernels.LAUNCHES))
+            card_res[name] = res
+            check(res["overflow"] == zero, f"examples 20a {name}: overflow {res['overflow']}")
+            want = app_launches(name, res)
+            check(res["launched"] == want, f"examples 20a {name}: the card run launched "
+                                           f"{res['launched']}, want {want}")
+
+        # 20b: the demo scene at full size, through the file apps
+        g = demo_scene(n=EXAMPLE_SPLATS, sh_degree=EXAMPLE_SH_DEGREE, device=dev)
+        ply, splat = os.path.join(tmp, "demo.ply"), os.path.join(tmp, "demo.splat")
+        t0 = time.perf_counter()
+        save_ply(g, ply)
+        src_splat = gt.save_splat(g, splat)
+        print(f"# examples 20b: the demo scene, {EXAMPLE_SPLATS} splats at SH degree "
+              f"{EXAMPLE_SH_DEGREE}: .ply {os.path.getsize(ply) / 1e6:.1f} MB, .splat "
+              f"{len(src_splat) / 1e6:.1f} MB written in {time.perf_counter() - t0:.2f} s")
+        back = gt.load_ply(ply, device=dev)
+        check(same_fields(back, g), "examples 20b: the .ply does not re-load bit-equal")
+        del back, g
+        for name, src in (("simple_viewer", ply), ("file_loader", splat),
+                          ("file_loader", ply), ("ply_converter", ply),
+                          ("scene_transformations", splat), ("camera_updates", ply)):
+            ext = os.path.splitext(src)[1][1:]
+            where = os.path.join(tmp, f"full_{name}_{ext}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = apps[name].run(src, device=dev, out=where)
+            torch.cuda.synchronize()
+            line = dict(s=round(time.perf_counter() - t0, 3),
+                        peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3),
+                        demand=res.get("demand"), overflow=res["overflow"],
+                        launches=nonzero(kernels.LAUNCHES))
+            check(res["overflow"] == zero, f"examples 20b {name} ({ext}): {res['overflow']}")
+            want = app_launches(name, res)
+            check(line["launches"] == want, f"examples 20b {name} ({ext}): launched "
+                                            f"{line['launches']}, want {want}")
+            if name == "simple_viewer":
+                f = res["frames"]
+                distinct = all(not np.array_equal(f[i], f[i + 1]) for i in range(len(f) - 1))
+                lit = [float((fr.max(axis=-1) > 0.05).mean()) for fr in f]
+                line["lit_share"] = [round(x, 3) for x in lit]
+                check(len(f) == 8 and distinct and min(lit) > 0.01,
+                      f"examples 20b orbit frames: distinct {distinct}, lit shares {lit}")
+            if name in ("file_loader", "ply_converter"):
+                fname = "scene_out.splat" if name == "file_loader" else "converted.splat"
+                d = splat_diff(read(os.path.join(where, fname)), src_splat)
+                line[fname] = d
+                if ext == "ply":  # the .ply holds the scene's raw floats
+                    check(d["bit_equal"], f"examples 20b {name} (ply): {fname} {d}")
+                check(splat_close(d, 1), f"examples 20b {name} ({ext}): {fname} {d}")
+            if name == "scene_transformations":
+                check(len(read(res["paths"][2])) == len(src_splat),
+                      "examples 20b: transformed.splat holds another number of rows")
+            if name == "camera_updates":
+                with open(res["paths"][2]) as fh:
+                    cams = gt.cameras_from_json(fh.read(), device=dev)
+                check(len(cams) == 2 and np.allclose(cams[1].position.cpu().numpy(),
+                                                     apps[name].POSITION_1),
+                      "examples 20b: camera.json does not load back to the two poses")
+            out["20b"][f"{name} ({ext})"] = line
+            print(f"# examples 20b {name} ({ext}): {line['s']:.2f} s, peak "
+                  f"{line['peak_gib']:.2f} GiB, measured demand {line['demand']}; "
+                  + "; ".join(f"{k} {v}" for k, v in line.items()
+                              if k not in ("s", "peak_gib", "demand")))
+            del res
+            torch.cuda.empty_cache()
+
+        # 20c: the app as a user runs it, a process of its own
+        where = os.path.join(tmp, "process")
+        t0 = time.perf_counter()
+        pr = subprocess.run([sys.executable, "-m", "gsjax_torch.examples.simple_viewer",
+                             "--out", where], cwd=ROOT, capture_output=True, text=True,
+                            timeout=EXAMPLE_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        folder = os.path.join(where, "simple_viewer")
+        pngs = sorted(os.listdir(folder)) if os.path.isdir(folder) else []
+        last = pr.stdout.strip().splitlines()[-1] if pr.stdout.strip() else ""
+        print(f"# examples 20c: python -m gsjax_torch.examples.simple_viewer: rc "
+              f"{pr.returncode} in {secs:.1f} s, {len(pngs)} PNGs; its last line: {last}")
+        check(pr.returncode == 0, f"examples 20c: rc {pr.returncode}: {pr.stderr[-2000:]}")
+        check(pngs == [f"frame_{i:04d}.png" for i in range(8)], f"examples 20c: {pngs}")
+        out["20c"] = dict(rc=pr.returncode, s=secs, pngs=len(pngs), last_line=last)
+
+        # 20a, the CPU's side, against the card's
+        t0 = time.perf_counter()
+        rc = cpu.wait(timeout=EXAMPLE_CPU_TIMEOUT_S)
+        cpu_log.close()
+        with open(os.path.join(tmp, "cpu.log")) as fh:
+            log = fh.read()
+        check(rc == 0, f"examples 20a: the CPU runs failed (rc {rc}): {log[-3000:]}")
+        with open(os.path.join(tmp, "cpu.pkl"), "rb") as fh:
+            cpu_res = pickle.load(fh)
+        print(f"# examples 20a: the CPU process ended {time.perf_counter() - t0:.1f} s "
+              f"after 20c")
+        for name in EXAMPLE_APPS:
+            rc, rh = card_res[name], cpu_res[name]
+            check(rh["overflow"] == zero, f"examples 20a {name} on the CPU: {rh['overflow']}")
+            line = dict(card_s=round(rc["s"], 3), cpu_s=round(rh["s"], 3),
+                        launches=rc["launched"], demand=rc.get("demand"))
+            frames = {"simple_viewer": ("frames",), "file_loader": ("frame",),
+                      "scene_transformations": ("before", "after"),
+                      "camera_updates": ("frames",)}.get(name, ())
+            for key in frames:
+                a, b = (torch.from_numpy(np.asarray(r[key])) for r in (rc, rh))
+                p999, dmax, ok = c_gate(a, b)
+                line[key] = dict(p999=p999, max=dmax)
+                check(ok, f"examples 20a {name}: {key} card vs cpu p99.9 {p999:.2e}, "
+                          f"max {dmax:.2e}")
+            if name in ("file_loader", "ply_converter"):
+                fname = "scene_out.splat" if name == "file_loader" else "converted.splat"
+                d = splat_diff(*(read(os.path.join(r["dir"], fname)) for r in (rc, rh)))
+                line[fname] = d
+                check(splat_close(d, 2), f"examples 20a {name}: {fname} card vs cpu {d}")
+            if name == "scene_transformations":
+                ra, rb = (np.frombuffer(read(r["paths"][2]), np.uint8).reshape(-1, 32)
+                          for r in (rc, rh))
+                fa, fb = (r[:, :24].copy().view(np.float32) for r in (ra, rb))
+                rel = float((np.abs(fa - fb) / np.abs(fb).max(axis=0)).max())
+                step = int(np.abs(ra[:, 24:].astype(int) - rb[:, 24:].astype(int)).max())
+                line["transformed.splat"] = dict(rel_to_peak=rel, u8_step=step)
+                check(rel <= 1e-6 and step <= 1,
+                      f"examples 20a transformed.splat card vs cpu: {rel:.2e}, step {step}")
+            if name == "camera_updates":
+                check(rc["cameras"] == rh["cameras"], "examples 20a camera.json card vs cpu")
+            if name == "train_fit":
+                ratio = rc["loss1"] / rh["loss1"]
+                line.update(loss0=(rc["loss0"], rh["loss0"]), loss1=(rc["loss1"], rh["loss1"]),
+                            loss1_ratio=ratio)
+                check(abs(rc["loss0"] - rh["loss0"]) <= 1e-6 * rh["loss0"],
+                      f"examples 20a train_fit loss0 card {rc['loss0']} vs cpu {rh['loss0']}")
+                check(rc["loss1"] < rc["loss0"] and rh["loss1"] < rh["loss0"],
+                      f"examples 20a train_fit: the loss does not fall {line}")
+                check(abs(ratio - 1) <= 0.02, f"examples 20a train_fit: loss1 ratio {ratio}")
+            if name == "sharded_render":
+                dmax = float(np.abs(rc["frame"] - rh["frame"]).max())
+                rel = abs(rc["loss"] - rh["loss"]) / rh["loss"]
+                line.update(frame_max=dmax, loss=(rc["loss"], rh["loss"]), loss_rel=rel)
+                check(dmax <= 1e-5 and rel <= 1e-5,
+                      f"examples 20a sharded_render card vs cpu: frame {dmax}, loss {rel}")
+            out["20a"][name] = line
+            print(f"# examples 20a {name}: card {rc['s']:.2f} s, cpu {rh['s']:.2f} s; "
+                  + "; ".join(f"{k} {v}" for k, v in line.items()
+                              if k not in ("card_s", "cpu_s")))
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+        cpu_log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
 def _fmt(d: dict, digits: int = 4) -> dict:
     return {k: round(x, digits) for k, x in d.items()}
 
@@ -2783,6 +3102,12 @@ def main() -> int:
     sharded = sharded_phase(g, cams, cfg, dev, card, train["stream"])
     print(f"# sharded: {time.perf_counter() - t0:.2f} s")
     del g
+    torch.cuda.empty_cache()
+
+    # 20. the example apps: the reference's sizes card vs CPU, full size ---
+    t0 = time.perf_counter()
+    examples = examples_phase(dev, card)
+    print(f"# examples: {time.perf_counter() - t0:.2f} s")
 
     # A-F: kernel → the training run its launches are read from (A, B:
     # both); the probes G-J: their runs in phase 11
@@ -2797,6 +3122,9 @@ def main() -> int:
         r["run"] = "its path's training run"
         if backend == "stream":  # phase 19's equalized step: once a band
             r["sharded_launches"] = sharded["launches"][counter]
+            # phase 20: the example apps' card runs at the reference's sizes
+            r["examples_launches"] = sum(line["launches"].get(counter, 0)
+                                         for line in examples["20a"].values())
     results.sort(key=lambda r: list(key).index(r["name"]))  # A-F, D's class sum after D
     probe_results.sort(key=lambda r: PROBE_KERNELS.index(r["name"]))  # G-J
     for r in probe_results:
@@ -2813,7 +3141,7 @@ def main() -> int:
                        stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train,
                        probes=probe_detail, lazy=lazy, scene_io=scene_io, autotune=tuned,
                        garden=garden, reference=reference, legacy=legacy, viewer=viewer,
-                       sharded=sharded),
+                       sharded=sharded, examples=examples),
                   fh, indent=1)
 
     print(json.dumps({"kernels": results}))

@@ -21,8 +21,14 @@ sums run in band order.
 The reference picks its xla backend off a TPU ("auto", "pallas") only
 because its kernels run interpreted there; here "auto" and "pallas" run
 the stream path on every device (the port's kernels run wherever it
-does). "xla" bins each band's span-clamped rects (the rect anchor) and
-blends them with the padded-list blend, as the reference does.
+does). "xla" takes the stream path's band chain (prefilter, layout,
+slice, kernel B's band bins) and blends its home-anchored bins with the
+padded-list blend, so a band renders what the whole image's exact xla
+render does there; only under footprint_clamp=True (and for "oracle")
+does a band bin its span-clamped rects by the rect anchor. The reference
+bins every xla band that way whatever footprint_clamp says, so its
+sharded xla render clamps fat splats that its whole-image render does
+not: the port does not copy that.
 """
 
 from __future__ import annotations
@@ -45,36 +51,51 @@ def _render_band(g, cam: Camera, cfg: RenderConfig, ty0: int, band: int,
     tiles_x·ts, 3], aux). `rows_live` (default band): the rows the band
     owns under an equal-content split; the prefilter, slice and kernel B
     bound their content to [ty0, ty0 + rows_live) while every shape
-    stays band-sized. The stream path's n_band_overflow counts the splats
-    the prefilter and the home rows the slice dropped."""
+    stays band-sized. The stream and exact xla paths' n_band_overflow
+    counts the splats the prefilter and the home rows the slice
+    dropped."""
     backend = "stream" if cfg.backend in ("auto", "pallas") else cfg.backend
     cam = cam.to(g.device)
     p = project(g, cam, cfg)
-    if backend != "stream":
+    if backend != "stream" and (backend != "xla" or cfg.footprint_clamp):
+        # the rect anchor's span-clamped bins: legacy xla, and the oracle
         bins = build_tile_bins(p, cam, cfg, ty0=ty0, band_rows=band)
         return composite_tiles(p, bins, cam, cfg)
     p, layout, bins, n_pref, n_sliced = build_band_bins(p, cam, cfg, ty0, band, rows_live)
-    img, aux = composite_tiles_stream(p, layout, bins, cam, cfg)
+    if backend == "xla":
+        img, aux = composite_tiles(p, bins, cam, cfg)
+        aux["n_fat_overflow"] = layout.n_fat_overflow
+        aux["n_band_overflow"] = torch.zeros_like(layout.n_fat_overflow)
+    else:
+        img, aux = composite_tiles_stream(p, layout, bins, cam, cfg)
     aux["n_band_overflow"] = aux["n_band_overflow"] + n_sliced + n_pref
     return img, aux
 
 
-def render_sharded(g, cam: Camera, cfg: RenderConfig, mesh):
+def render_sharded(g, cam: Camera, cfg: RenderConfig, mesh, return_aux: bool = False):
     """Render with the tile rows split over the mesh's bands: [padded_H,
     tiles_x·ts, 3] on every rank, the bands in order (crop to
     [:cam.height, :cam.width]). Without a group it is differentiable;
     with one the ranks' bands are summed into one image (each row is one
-    band's) by an all_reduce, which autograd does not see."""
+    band's) by an all_reduce, which autograd does not see. With
+    return_aux, (img, {counter: 0-d int64}): the AUX_COUNTERS summed over
+    this rank's bands."""
     mesh.check(g)
     band = band_rows_for(cfg, cam.height, mesh.n_bands)
-    imgs = [_render_band(g, cam, cfg, d * band, band)[0] for d in mesh.owned_bands()]
+    outs = [_render_band(g, cam, cfg, d * band, band) for d in mesh.owned_bands()]
+    imgs = [img for img, _ in outs]
     if mesh.group is None:
-        return torch.cat(imgs)
-    rows = band * cfg.tile_size
-    full = imgs[0].new_zeros((mesh.n_bands * rows,) + tuple(imgs[0].shape[1:]))
-    for d, img in zip(mesh.owned_bands(), imgs):
-        full[d * rows:(d + 1) * rows] = img.detach()
-    return mesh.all_reduce_(full)
+        full = torch.cat(imgs)
+    else:
+        rows = band * cfg.tile_size
+        full = imgs[0].new_zeros((mesh.n_bands * rows,) + tuple(imgs[0].shape[1:]))
+        for d, img in zip(mesh.owned_bands(), imgs):
+            full[d * rows:(d + 1) * rows] = img.detach()
+        full = mesh.all_reduce_(full)
+    if not return_aux:
+        return full
+    counters = sum(_aux_counters(aux, full.device) for _, aux in outs)
+    return full, dict(zip(AUX_COUNTERS, counters.unbind()))
 
 
 #: the scalar counters a train step returns, summed over the bands:

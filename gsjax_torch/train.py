@@ -52,14 +52,19 @@ def default_optimizer(g: Gaussians, lr_means: float = 1.6e-4,
     return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
 
 
-def make_step_fn(cam: Camera, cfg: RenderConfig, optimizer):
+def make_step_fn(cam: Camera, cfg: RenderConfig, optimizer, on_aux=None):
     """One training step at `cam`: step(g, target) → loss (a 0-d tensor
     on g's device), loss = mean((render − target)²). The optimizer must
-    hold g's parameters; they are updated in place."""
+    hold g's parameters; they are updated in place. on_aux(aux), when
+    given, is called with each step's render aux (its overflow
+    counters)."""
 
     def step(g: Gaussians, target: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = torch.mean((render(g, cam, cfg) - target) ** 2)
+        img, aux = render(g, cam, cfg, return_aux=True)
+        if on_aux is not None:
+            on_aux(aux)
+        loss = torch.mean((img - target) ** 2)
         loss.backward()
         optimizer.step()
         return loss.detach()
@@ -68,24 +73,33 @@ def make_step_fn(cam: Camera, cfg: RenderConfig, optimizer):
 
 
 def fit(g: Gaussians, cameras, targets, cfg: RenderConfig = RenderConfig(),
-        steps: int = 100, optimizer=None, mesh=None, log_every: int = 0):
+        steps: int = 100, optimizer=None, mesh=None, log_every: int = 0,
+        on_aux=None):
     """Fit `g` to the (cameras[i], targets[i]) pairs, cycling through the
     views; each step renders its own view's camera. With `mesh` (a band
     mesh, parallel/mesh.make_mesh) each step is the tile-sharded one, whose
     loss is the squared error over the tile-rounded image's pixels (the
     mean when the image is whole tiles). Returns (TrainState, losses).
-    `g` is trained in place."""
+    `g` is trained in place. on_aux(aux), when given, is called with each
+    step's counters (a render's aux; a sharded step's, summed over its
+    bands)."""
     optimizer = optimizer or default_optimizer(g)
     if mesh is None:
         tgts = [torch.as_tensor(t, dtype=torch.float32, device=g.device) for t in targets]
-        step_fns = [make_step_fn(cam, cfg, optimizer) for cam in cameras]
+        step_fns = [make_step_fn(cam, cfg, optimizer, on_aux) for cam in cameras]
     else:
         from gsjax_torch.parallel.render_sharded import make_train_step, pad_target
 
         tgts = [pad_target(cfg, cam, t, mesh.n_bands, device=g.device)
                 for cam, t in zip(cameras, targets)]
         sharded = [make_train_step(cam, cfg, mesh, optimizer) for cam in cameras]
-        step_fns = [lambda g, t, f=f: f(g, t)[0] for f in sharded]
+        def sharded_step(g, t, f):
+            loss, aux = f(g, t)
+            if on_aux is not None:
+                on_aux(aux)
+            return loss
+
+        step_fns = [lambda g, t, f=f: sharded_step(g, t, f) for f in sharded]
     losses = []
     for s in range(steps):
         i = s % len(cameras)

@@ -41,7 +41,10 @@ def test_package_imports_no_jax():
     for m in ("io.native", "io.ply", "io.qply", "io.splat", "io.stream", "core.autotune",
               "core.banded", "core.transforms", "render.oracle", "render.passes",
               "camera.controls", "camera.json_io", "parallel.mesh", "parallel.render_sharded",
-              "parallel.dryrun", "parallel.mp_worker"):
+              "parallel.dryrun", "parallel.mp_worker", "examples._common",
+              "examples.simple_viewer", "examples.file_loader", "examples.ply_converter",
+              "examples.scene_transformations", "examples.camera_updates",
+              "examples.train_fit", "examples.sharded_render"):
         assert f"gsjax_torch.{m}" in walked, m
 
 

@@ -130,8 +130,7 @@ Phases (any failure exits non-zero; there is no CPU path):
                loss the exact path's (phase 10) within 1e-5 and bench.py's
                within 5%, view 0's loss falling, the home-order parameters
                finite, sync() changing the master; median ms per lazy
-               step, ms per resort and its parts (fold, plan, extract),
-               peak device memory;
+               step, ms per resort (synchronised), peak device memory;
  13. io      — bonsai_like(1,200,000, SH degree 3) written with save_ply
                (~298 MB) and read back through the native parser, the
                numpy parser and load_ply_streamed, each bit-equal to the
@@ -702,8 +701,8 @@ def lazy_phase(g, cams, cfg, dev, card, exact) -> dict:
     no other kernel (the counters, zeroed after each resort, read after
     the view's steps). The loss at view 0 falls, the home-order parameters
     stay finite, sync() changes the master. Returns the run's numbers:
-    the ms of each lazy step (synchronised), of each resort and its parts
-    (fold, plan, extract), peak device memory."""
+    the ms of each lazy step and of each resort (synchronised), peak
+    device memory."""
     import torch
 
     import gsjax_torch as gt
@@ -724,17 +723,12 @@ def lazy_phase(g, cams, cfg, dev, card, exact) -> dict:
     resorts = []
 
     def resort(cam):
-        parts, t = {}, [time.perf_counter()]
-
-        def lap(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            parts[name] = (now - t[0]) * 1e3
-            t[0] = now
-
         kernels.reset_launches()
-        plan = tr.resort(cam, lap)
-        resorts.append(parts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = tr.resort(cam)
+        torch.cuda.synchronize()
+        resorts.append((time.perf_counter() - t0) * 1e3)
         return plan, dict(kernels.LAUNCHES)
 
     plan, launched = resort(cams_l[0])
@@ -812,14 +806,11 @@ def lazy_phase(g, cams, cfg, dev, card, exact) -> dict:
     moved = [n_ for n_, t in g_train.named_parameters() if not torch.equal(t, master0[n_])]
     check(len(moved) == len(master0), f"lazy: sync() changed only {moved}")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    med = lambda k, rs=resorts[1:]: round(statistics.median(r[k] for r in rs), 3)
     print(f"# lazy timing on {card}: median {statistics.median(step_ms):.3f} ms per lazy "
           f"step over {len(step_ms)} (synchronised; all {[round(x, 2) for x in step_ms]}); "
           f"the exact step (phase 10) median {statistics.median(exact['step_ms']):.3f}; "
-          f"resort at views 1-{LAZY_VIEWS - 1} median "
-          f"{med('fold') + med('plan') + med('extract'):.3f} ms (fold {med('fold')}, plan "
-          f"{med('plan')}, extract {med('extract')}; each "
-          f"{[{k: round(x, 2) for k, x in r.items()} for r in resorts]}); the last sync "
+          f"resort at views 1-{LAZY_VIEWS - 1} median {statistics.median(resorts[1:]):.3f} "
+          f"ms (synchronised; each {[round(x, 2) for x in resorts]}); the last sync "
           f"(fold) {sync_ms:.3f} ms; peak device memory {peak_gib:.2f} GiB")
     return dict(step_ms=step_ms, losses=losses, resort_ms=resorts, sync_ms=sync_ms,
                 peak_gib=peak_gib)

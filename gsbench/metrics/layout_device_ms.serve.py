@@ -1,0 +1,17 @@
+"""The layout's and bins' device time per served frame, in ms: the busy
+device time inside the port's `layout` and `bins` spans under `render`
+roots, over the traced window's frames (the device's waits at the
+layout's host syncs left out: layout_idle_ms.serve reads them). Moves
+frames_per_s."""
+
+from gsbench import program_trace as pt
+
+
+def read(art):
+    snap = pt.timed_records(art)
+    if snap is None:
+        return None
+    frames = pt.under(snap, "render")
+    if not frames:
+        return None
+    return pt.device_ms(frames, "layout", "bins") / art["units"]

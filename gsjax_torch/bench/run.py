@@ -119,44 +119,6 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def profile_steps(step, n: int, dev: torch.device, top: int = 12, unit: str = "step") -> str:
-    """Trace `n` calls of step() with torch.profiler: per call (a `unit`),
-    the wall time, the device time (the sum of the device-side events:
-    kernels, copies, sets; not the ranges a record_function marks on the
-    device's timeline, such as Optimizer.step, which hold kernels counted
-    already: the sum with them, this runner's earlier count, is printed
-    beside), the device's idle share, and the largest kernels and aten ops
-    by device time. The tracing itself slows the host, so the wall time and idle
-    share read high against an untraced run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    step()
-    _sync(dev)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        _sync(dev)
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    ka = prof.key_averages()
-    dev_events = [e for e in ka
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    own = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key) for e in dev_events
-                  if not getattr(e, "is_user_annotation", False)), reverse=True)
-    with_ranges = sum(e.self_device_time_total for e in dev_events) / 1e3 / n
-    ops = sorted(((e.device_time_total / 1e3 / n, e.count / n, e.key) for e in ka
-                  if e.key.startswith("aten::") and e.device_time_total > 0), reverse=True)
-    busy = sum(t for t, _, _ in own)
-    lines = [f"# profile of {n} {unit}s: wall {wall:.3f} ms/{unit}, device busy "
-             f"{busy:.3f} ms/{unit}, idle share {1 - busy / wall:.3f} (with the "
-             f"record_function ranges counted too: busy {with_ranges:.3f})"]
-    lines += [f"#   kernel {t:8.3f} ms/{unit}  x{c:g}  {k[:100]}" for t, c, k in own[:top]]
-    lines += [f"#   op     {t:8.3f} ms/{unit}  x{c:g}  {k}" for t, c, k in ops[:top]]
-    return "\n".join(lines)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -192,10 +154,6 @@ def main(argv=None) -> int:
     ap.add_argument("--no-autotune", action="store_true",
                     help="skip the occupancy pre-pass (core/autotune.derive_caps) "
                     "and render at --fat-cap / --fat-live-cap")
-    ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
-                    help="after the timed run, trace this many more steps at "
-                    "view 0 (in the lazy modes lazy steps after a resort, then as "
-                    "many resorts) with torch.profiler (printed to stderr)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu: the plain PyTorch versions, "
                     "for tests; a CPU time is not a device time")
@@ -309,9 +267,6 @@ def main(argv=None) -> int:
     final = float(loss)  # waits for the device
     ms = (time.perf_counter() - t0) / n_steps * 1e3
     extra.update(loss0=round(loss0, 5), final_loss=round(final, 5))
-    if args.profile:
-        print(profile_steps(lambda: steps[0](g_train, tgt0), args.profile, dev),
-              file=sys.stderr)
     print_result(ms, extra, dev)
     return 0
 
@@ -412,13 +367,6 @@ def run_lazy(args, g, cams, cfg, targets, dev, extra) -> int:
     if gate_overflow(ovfs):
         return 1
     extra["final_loss"] = round(final, 5)
-    if args.profile:  # lazy steps after a resort, then resorts (fold, plan, extract)
-        tr.resort(cams[0])
-        print(profile_steps(lambda: tr.step(tgt0, cams[0]), args.profile, dev),
-              file=sys.stderr)
-        print(profile_steps(lambda: tr.resort(cams[0]), args.profile, dev, unit="resort"),
-              file=sys.stderr)
-        tr.sync()
     print_result(ms, extra, dev)
     return 0
 

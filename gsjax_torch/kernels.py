@@ -21,7 +21,9 @@ Never build with --use_fast_math.
 
 LAUNCHES counts, per kernel, the launches its wrapper made; a run zeroes
 it with reset_launches() and reads it afterwards to show which kernels
-the path went through.
+the path went through. A module that keeps records of its own for a run
+(gsjax_torch.trace) registers its reset with on_reset(), so a run has
+one reset.
 """
 
 from __future__ import annotations
@@ -99,9 +101,19 @@ _SIGNATURES = {"path": {
 _libs: dict = {}
 
 
+_ON_RESET: list = []
+
+
+def on_reset(fn) -> None:
+    """Have reset_launches() call fn() too."""
+    _ON_RESET.append(fn)
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for fn in _ON_RESET:
+        fn()
 
 
 def _nvcc() -> str:

@@ -24,7 +24,7 @@ import dataclasses
 
 import torch
 
-from gsjax_torch import kernels
+from gsjax_torch import kernels, trace
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.render.common import (MAX_TILES, box_inside, box_qmin, clamp_rect_to_span,
@@ -160,6 +160,7 @@ def expand_live_pairs(p: ProjectedSplats, layout, ty0: int, band_rows: int,
         raise ValueError(f"expand_live_pairs: unsupported device {p.depth.device}")
     pid_live, key, count = launch_expand(*expand_inputs(p, layout, cfg), ty0, band_rows,
                                          tiles_x, cfg.tile_size, cfg.tile_span)
+    trace.host_sync(count)
     s = int(count)  # the one device-to-host read
     return pid_live[:s], key[:s]
 
@@ -296,6 +297,7 @@ def span_clamped_pairs(p: ProjectedSplats, cfg: RenderConfig, anchor: str,
     return live.to(torch.int32), sort_key(tile, dbits), n_clamped
 
 
+@trace.spanned("bins")
 def build_tile_bins(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
                     ty0: int = 0, band_rows: int | None = None,
                     anchor: str = "rect", layout=None,

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from gsjax_torch import trace
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.render.binning import TileBins
 from gsjax_torch.render.common import f32_scalar, gaussian_power
@@ -125,6 +126,7 @@ def assemble_band(img_t, T_t, bins: TileBins, cfg: RenderConfig, bg=None):
     ts = cfg.tile_size
     tiles_x, band_rows = bins.tiles_x, bins.band_rows
     if bg is None:
+        trace.host_sync(img_t)
         bg = torch.tensor(cfg.background, dtype=torch.float32, device=img_t.device)
     img_t = img_t + T_t[..., None] * bg
     img = img_t.reshape(band_rows, tiles_x, ts, ts, 3)

@@ -32,7 +32,7 @@ import dataclasses
 
 import torch
 
-from gsjax_torch import kernels
+from gsjax_torch import kernels, trace
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.render.common import box_inside, box_qmin, depth_bits, f32_scalar, tile_rect
@@ -235,6 +235,7 @@ class _HomeGather(torch.autograd.Function):
         return torch.cat([x, tail_x])[perm]
 
     @staticmethod
+    @trace.spanned("layout_bwd")
     def backward(ctx, d):
         inv, inv_tail, seg_base = ctx.saved_tensors
         dx = reduce_home_rows(d, ctx.f, inv, inv_tail, seg_base)
@@ -343,6 +344,7 @@ def fat_parent_table(p, x0, y0, x1, y1, sbx, n_ex):
         ],
         dim=-1,
     ).detach()
+    trace.host_sync(n_ex)
     fat_idx = torch.nonzero(n_ex > 0).squeeze(1)
     nf = fat_idx.shape[0]
     g18 = torch.zeros_like(src18)
@@ -434,8 +436,8 @@ def copy_slot_parents(n_ex, fat_cap: int):
     none). Here the owner is a binary search of the bases (the last splat
     whose base is at most the slot: a thin splat's base is the next
     one's): torch's running max, a scan with indices, took 6.8 ms for the
-    2.3M slots of the bonsai 1080p orbit on an H100 (bench.run
-    --profile)."""
+    2.3M slots of the bonsai 1080p orbit on an H100 (a torch.profiler
+    trace)."""
     base = torch.cumsum(n_ex, 0) - n_ex
     n_copies = base[-1] + n_ex[-1]
     idx = torch.arange(n_ex.shape[0], device=n_ex.device)
@@ -446,6 +448,7 @@ def copy_slot_parents(n_ex, fat_cap: int):
     return torch.where(past, last_fat, owner)
 
 
+@trace.spanned("layout")
 def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
                       return_extras: bool = False):
     """Sort the PROJECTED scene by (home tile, depth), splitting fat

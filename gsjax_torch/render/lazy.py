@@ -47,6 +47,7 @@ import dataclasses
 
 import torch
 
+from gsjax_torch import trace
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.core.gaussians import FIELDS, Gaussians
@@ -353,6 +354,7 @@ def _fold_group(m_g, h_g, h0_g, cnt, kc: int, reduce: str, plan: FramePlan):
 # --------------------------------------------------------------------------
 
 
+@trace.spanned("project")
 def lazy_cols(hp: Gaussians, cam: Camera, cfg: RenderConfig):
     """The blend's attribute table [NH, 9] (composite.att_table's columns:
     mean2d, conic, rgb, opacity) of the home-order parameters under the
@@ -398,13 +400,23 @@ def make_lazy_step(cfg: RenderConfig):
     """A lazy training step over home-order state: step(hp, opt, target,
     cam, plan) → loss, a 0-d tensor on the card (no host sync): mean
     squared error of lazy_render against target, its backward, one
-    opt.step() on hp's parameters (updated in place)."""
+    opt.step() on hp's parameters (updated in place). While a profile
+    records, it counts the plan's home rows (`home_rows`) and those with a
+    source splat (`home_rows_live`, a device tensor): the step projects
+    every row, dead ones included."""
 
+    @trace.spanned("step")
     def step(hp: Gaussians, opt, target, cam: Camera, plan: FramePlan) -> torch.Tensor:
-        opt.zero_grad(set_to_none=True)
+        if trace.recording():
+            trace.count("home_rows", plan.nh)
+            trace.count("home_rows_live", (plan.pidx < plan.n).sum())
+        with trace.span("optimizer"):
+            opt.zero_grad(set_to_none=True)
         loss = torch.mean((lazy_render(hp, cam, cfg, plan) - target) ** 2)
-        loss.backward()
-        opt.step()
+        with trace.span("backward"):
+            loss.backward()
+        with trace.span("optimizer"):
+            opt.step()
         return loss.detach()
 
     return step
@@ -500,16 +512,19 @@ class LazyTrainer:
         self.plan = self.hp = self.hp_opt = self._h0 = None
         return self.g
 
-    def resort(self, cam: Camera, lap=None) -> FramePlan:
+    @trace.spanned("resort")
+    def resort(self, cam: Camera) -> FramePlan:
         """Fold back, build the frame plan at the current parameters and
-        this camera, and extract the home-order state. `lap`, where given,
-        is called with "fold", "plan" and "extract" as each part ends."""
-        self.sync()
-        if lap:
-            lap("fold")
-        self.plan = build_frame_plan(self.g, cam, self.cfg)
-        if lap:
-            lap("plan")
+        this camera, and extract the home-order state: the spans "fold",
+        "plan" and "extract" under "resort"."""
+        with trace.span("fold"):
+            self.sync()
+        with trace.span("plan"):
+            self.plan = build_frame_plan(self.g, cam, self.cfg)
+        with trace.span("extract"):
+            return self._extract()
+
+    def _extract(self) -> FramePlan:
         params, moments, keys = self._state()
         home, self._h0 = extract_home(params + moments, self.plan, return_packed=True)
         self.hp = Gaussians(*home[:len(FIELDS)])
@@ -525,8 +540,6 @@ class LazyTrainer:
                 for k, v in master.items() if not _per_splat(v, self.plan.n)}
         for (f, k), t in zip(keys, home[len(FIELDS):]):
             self.hp_opt.state[getattr(self.hp, f)][k] = t
-        if lap:
-            lap("extract")
         return self.plan
 
     def step(self, target: torch.Tensor, cam: Camera) -> torch.Tensor:

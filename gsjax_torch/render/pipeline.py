@@ -25,6 +25,7 @@ versions do.
 
 from __future__ import annotations
 
+from gsjax_torch import trace
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.core.gaussians import Gaussians
@@ -43,6 +44,7 @@ def _resolve_backend(cfg: RenderConfig) -> str:
     return backend
 
 
+@trace.spanned("project")
 def _project_any(g, cam: Camera, cfg: RenderConfig):
     """project() for Gaussians or BandedGaussians (core/banded.py: each
     group evaluates only its own SH degree)."""
@@ -53,6 +55,7 @@ def _project_any(g, cam: Camera, cfg: RenderConfig):
     return project(g, cam, cfg)
 
 
+@trace.spanned("render")
 def render(g: Gaussians, cam: Camera, cfg: RenderConfig = RenderConfig(),
            return_aux: bool = False, passes=()):
     """Render an [H, W, 3] image on the device of `g`'s tensors (the

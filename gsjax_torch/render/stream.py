@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from gsjax_torch import kernels
+from gsjax_torch import kernels, trace
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.render.common import box_inside, box_qmin, gaussian_power
 from gsjax_torch.render.composite import assemble_band, att_table, clipped_pair_stream
@@ -522,6 +522,7 @@ class _BlendStream(torch.autograd.Function):
         return out[:, 0:3, :].transpose(1, 2).contiguous(), out[:, 3, :].contiguous()
 
     @staticmethod
+    @trace.spanned("blend_bwd")
     def backward(ctx, ct_img, ct_T):
         att, pid, starts, out = ctx.saved_tensors
         if ct_img is None:

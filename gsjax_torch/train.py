@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from gsjax_torch import trace
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.core.gaussians import Gaussians
@@ -59,14 +60,18 @@ def make_step_fn(cam: Camera, cfg: RenderConfig, optimizer, on_aux=None):
     given, is called with each step's render aux (its overflow
     counters)."""
 
+    @trace.spanned("step")
     def step(g: Gaussians, target: torch.Tensor) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
+        with trace.span("optimizer"):
+            optimizer.zero_grad(set_to_none=True)
         img, aux = render(g, cam, cfg, return_aux=True)
         if on_aux is not None:
             on_aux(aux)
         loss = torch.mean((img - target) ** 2)
-        loss.backward()
-        optimizer.step()
+        with trace.span("backward"):
+            loss.backward()
+        with trace.span("optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step

@@ -6,8 +6,9 @@ and check them.
 
 Phases (any failure exits non-zero; there is no CPU path):
   1. device  — require CUDA; print the card's name and power limit;
-  2. build   — compile the ten CUDA kernels from gsjax_torch/csrc: the
-               path's library (A-F) and the probes' (G-J and the empty
+  2. build   — compile the CUDA kernels from gsjax_torch/csrc: the
+               path's library (A-F and the projection pair) and the
+               probes' (G-J and the empty
                launch that measures their launch floor), side by side,
                every nvcc at once, each library's time printed; beside
                them the forward's `baseline` variant (tools/
@@ -161,7 +162,8 @@ Phases (any failure exits non-zero; there is no CPU path):
                TF32 must be off) against stream and pallas on a 2,000-
                splat SH-3 scene at 256×192, exact mode, forward and
                backward, the counters zeroed before each and read after
-               (xla: A and B once, C-F never; the oracle: nothing): each
+               (every backend: the projection pair once, the camera's
+               gradient too; xla: A and B once, C-F never): each
                image within 1e-4 of the oracle's, xla's gradients (every
                field and camera leaf) against stream's and pallas's within
                1e-4 (p99.9) and 1e-1 (max) of each leaf's peak; BASELINE
@@ -223,7 +225,23 @@ Phases (any failure exits non-zero; there is no CPU path):
                GiB and the measured demand of each; 20c: python -m
                gsjax_torch.examples.simple_viewer as a process: rc 0, 8
                PNGs.
-Prints the kernels' JSON line (A-J and D's class sum, each with its
+ 21. project — the projection pair (csrc/project.cu) at the cells'
+               shapes: bonsai_like 1,200,000 at SH degree 3 on view 0,
+               the forward's fields and the lazy table bit-equal to the
+               composition on the card; there, at a lazy resort's home
+               rows and at garden_like 5,000,000 at SH degree 3, the
+               backward (both modes, the camera's gradient too) against
+               the plain VJP computed in float64: each leaf within 2× the
+               plain float32 VJP's own error + 1e-6 of its peak (the
+               camera's 19 values: + 1e-5) and within 1e-3 of its peak
+               (1e-4 at bonsai), two launches bit-equal, the camera's
+               gradient leaving the leaves' unchanged (a row whose cull
+               float64 decides otherwise gets no output gradient: another
+               branch, not rounding; counted); each kernel's time
+               alone at the three shapes, beside its byte bound and the
+               plain version's time.
+Prints the kernels' JSON line (A-J, D's class sum and the projection
+pair, each with its
 time, its plain version's, its bound and its launches: A-F in their
 path's training run (A-D and D' also `sharded_launches`, phase 19's
 step, and `examples_launches`, phase 20a's card runs summed), G-J in their probe's timed run in phase 11; a probe's times and bound
@@ -290,12 +308,16 @@ EXAMPLE_TIMEOUT_S = 120
 EXAMPLE_CPU_TIMEOUT_S = 600  # phase 20a's CPU side, after the card's 20a-20c
 EXAMPLE_CPU_THREADS = 6  # of the chip machine's 8 cores
 # the kernels each path launches (LAUNCHES keys) serving, and besides
-# those when training
-SERVE_KERNELS = {"stream": ("repeat", "expand", "stream_fwd"),
-                 "pallas": ("repeat", "expand", "slots_fwd"),
-                 "xla": ("repeat", "expand"), "oracle": ()}  # plain-PyTorch blends
-TRAIN_KERNELS = {"stream": ("stream_bwd", "stream_class_sum"), "pallas": ("slots_bwd",),
-                 "xla": (), "oracle": ()}
+# those when training; every backend projects through the projection
+# pair (PROJECT_KERNELS), a camera's gradient included
+SERVE_KERNELS = {"stream": ("repeat", "expand", "stream_fwd", "project_fwd"),
+                 "pallas": ("repeat", "expand", "slots_fwd", "project_fwd"),
+                 "xla": ("repeat", "expand", "project_fwd"),
+                 "oracle": ("project_fwd",)}  # plain-PyTorch blends
+TRAIN_KERNELS = {"stream": ("stream_bwd", "stream_class_sum", "project_bwd"),
+                 "pallas": ("slots_bwd", "project_bwd"), "xla": ("project_bwd",),
+                 "oracle": ("project_bwd",)}
+PROJECT_KERNELS = ("project_fwd", "project_bwd")
 # G-J (LAUNCHES keys = kernel-line names), on no path: phase 11 only
 PROBE_KERNELS = ("probe_mosaic", "probe_compact", "probe_scalars", "probe_chunk")
 # J variants whose work is a zero-trip loop and an untaken branch: their
@@ -732,8 +754,9 @@ def lazy_phase(g, cams, cfg, dev, card, exact) -> dict:
         return plan, dict(kernels.LAUNCHES)
 
     plan, launched = resort(cams_l[0])
-    want = {k: int(k in ("repeat", "expand")) for k in launched}
-    check(launched == want, f"lazy: the resort launched {launched} (want A and B once)")
+    want = {k: int(k in ("repeat", "expand", "project_fwd")) for k in launched}
+    check(launched == want, f"lazy: the resort launched {launched} (want A, B and the "
+          "projection once)")
     ovf = {k: int(v) for k, v in plan.ovf.items()}
     check(all(v == 0 for k, v in ovf.items() if k != "n_pairs"),
           f"lazy: the resort at view 0 overflowed {ovf}")
@@ -780,10 +803,11 @@ def lazy_phase(g, cams, cfg, dev, card, exact) -> dict:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses[-1].append(float(loss))
         launched = dict(kernels.LAUNCHES)
-        want_step = {k: LAZY_STEPS * int(k in ("stream_fwd", "stream_bwd", "stream_class_sum"))
-                     for k in launched}
+        want_step = {k: LAZY_STEPS * int(k in ("stream_fwd", "stream_bwd", "stream_class_sum",
+                                               *PROJECT_KERNELS)) for k in launched}
         check(launched == want_step, f"lazy: {LAZY_STEPS} steps at view {v} launched "
-              f"{launched} (want C and D's two kernels once a step, nothing else)")
+              f"{launched} (want C, D's two kernels and the projection pair once a step, "
+              "nothing else)")
     for n_, t in tr.hp.named_parameters():
         check(bool(torch.isfinite(t).all()), f"lazy: home-order {n_} not finite")
     l0 = losses[0]
@@ -1239,7 +1263,7 @@ def autotune_phase(g, cams, dev, card) -> dict:
     total_ms = (time.perf_counter() - t_all) * 1e3
     derive_ms = (time.perf_counter() - t_derive) * 1e3
     launched = dict(kernels.LAUNCHES)
-    want = {k: len(cams) * int(k in ("repeat", "expand")) for k in launched}
+    want = {k: len(cams) * int(k in ("repeat", "expand", "project_fwd")) for k in launched}
     keys = ("n_valid", "n_live_prim", "n_copies", "n_pairs", "n_fat_overflow")
     for v, m in enumerate(ms):
         print(f"# autotune view {v}: " + ", ".join(f"{k} {m[k]}" for k in keys)
@@ -1253,7 +1277,8 @@ def autotune_phase(g, cams, dev, card) -> dict:
           f"{nonzero(launched)}; worst view {worst}; derived {derived} (BENCH_r05: fat_cap "
           f"{R05_FAT_CAP}, live_cap {R05_LIVE_CAP}, pair_cap {R05_PAIR_CAP}, repack_rows "
           f"{R05_REPACK_ROWS})")
-    check(launched == want, f"autotune: launches {launched} (want A and B once a view)")
+    check(launched == want, f"autotune: launches {launched} (want A, B and the projection "
+          "once a view)")
     check((cfg.fat_cap, cfg.fat_live_cap) == (R05_FAT_CAP, R05_LIVE_CAP),
           f"autotune: fat_cap {cfg.fat_cap}, fat_live_cap {cfg.fat_live_cap}: not "
           f"BENCH_r05's {R05_FAT_CAP}, {R05_LIVE_CAP}")
@@ -1310,7 +1335,7 @@ def garden_phase(dev, card) -> dict:
         launched = dict(kernels.LAUNCHES)
         ovf = {k: int(v) for k, v in plan.ovf.items() if k != "n_pairs"}
         check(not any(ovf.values()), f"garden: resort {r} overflow {ovf}")
-        check(launched == {k: int(k in ("repeat", "expand")) for k in launched},
+        check(launched == {k: int(k in ("repeat", "expand", "project_fwd")) for k in launched},
               f"garden: the resort launched {launched}")
         kernels.reset_launches()
         for _ in range(LAZY_STEPS):
@@ -1321,8 +1346,8 @@ def garden_phase(dev, card) -> dict:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(loss))
         launched = dict(kernels.LAUNCHES)
-        want = {k: LAZY_STEPS * int(k in ("stream_fwd", "stream_bwd", "stream_class_sum"))
-                for k in launched}
+        want = {k: LAZY_STEPS * int(k in ("stream_fwd", "stream_bwd", "stream_class_sum",
+                                          *PROJECT_KERNELS)) for k in launched}
         check(launched == want, f"garden: {LAZY_STEPS} lazy steps launched {launched}")
     tr.sync()
     for n_, t in g_train.named_parameters():
@@ -1383,8 +1408,8 @@ def reference_phase(dev, card) -> dict:
     """16. The reference backends on the card. A small scene (REF_SPLATS
     splats at SH degree 3, REF_SIZE) rendered exact through oracle, xla,
     stream and pallas, forward and backward, the counters zeroed before
-    each and read after (xla: A and B once, C-F never; the oracle: no
-    kernel): each image within ORACLE_TOL of the oracle's, overflow 0;
+    each and read after (every backend: the projection pair once, the
+    camera's gradient too; xla: A and B once, C-F never): each image within ORACLE_TOL of the oracle's, overflow 0;
     xla's gradients (every field and the camera's) against stream's and
     pallas's within GRAD_REL_P999 / GRAD_REL_MAX of each leaf's peak;
     BASELINE config 2's finite-difference check on a FD_SIZE crop at SH
@@ -1434,7 +1459,8 @@ def reference_phase(dev, card) -> dict:
     print(f"# reference backends on {card}: {REF_SPLATS} splats at SH degree 3, {w}x{h}, "
           f"exact; max |image - oracle's| {_fmt(d_img, 9)} (gate {ORACLE_TOL}); pairs "
           f"{ {b: i['n_pairs'] for b, i in info.items() if b != 'oracle'} }; launches "
-          f"(forward + backward) xla A, B once, C-F never; oracle none")
+          f"(forward + backward) xla A, B and the projection pair once, C-F never; oracle "
+          "the projection pair only")
     for b, d in d_img.items():
         check(d <= ORACLE_TOL, f"reference {b}: max |Δ| {d} from the oracle's image")
     g_rel = {}
@@ -1562,7 +1588,8 @@ def legacy_phase(dev, card) -> dict:
             img, aux = gt.render(gg, cam, cfg, return_aux=True)
             torch.mean((img - target) ** 2).backward()
             torch.cuda.synchronize()
-            # the blend's kernels once; no layout kernel (A, B) in legacy mode
+            # the blend's kernels and the projection pair once; no layout
+            # kernel (A, B) in legacy mode
             want = {k: 1 for k in SERVE_KERNELS[backend] + TRAIN_KERNELS[backend]
                     if k not in ("repeat", "expand")}
             check(nonzero(kernels.LAUNCHES) == want, f"legacy {backend} span {span}: "
@@ -2160,20 +2187,171 @@ def splat_close(d: dict, trips: int) -> bool:
                               and d["u8_step"] <= 1 and d["u8_share"] < 0.01)
 
 
+def projection_phase(dev, card) -> tuple:
+    """21. The projection pair against its plain versions and timed at the
+    cells' shapes (the module docstring's phase 21). Returns the two
+    kernel-line entries and the errors and times by shape."""
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch.bench.run import autotune, orbit_cameras, perturb
+    from gsjax_torch.bench.synth import bonsai_like, garden_like
+    from gsjax_torch.core.gaussians import FIELDS
+    from gsjax_torch.render import project as P
+
+    cfg = gt.RenderConfig(backend="stream", chunk=128)
+    cams = orbit_cameras(30, WIDTH, HEIGHT, device=dev)
+    cam = cams[0]
+    camp = P.camera_params(cam)
+    cam64 = gt.Camera(*(t.double() for t in (cam.position, cam.quat, cam.fx, cam.fy)),
+                      cam.width, cam.height)
+    g = bonsai_like(n=N_SPLATS, seed=0, sh_degree=3, device=dev)
+    leaves = [getattr(g, f).detach() for f in FIELDS]
+    n = leaves[0].shape[0]
+    p = P.project_plain(*leaves, cam, cfg)
+    fields = (P.home_columns(p), p.valid)  # the composition's, packed as the kernel's
+    for table, want in ((False, fields), (True, (P.table_plain(p),))):
+        got = P.project_forward(leaves, cam, camp, cfg, table)
+        again = P.project_forward(leaves, cam, camp, cfg, table)
+        for a, b, c in zip(got, want, again):
+            check(torch.equal(a, b) and torch.equal(a, c), f"projection forward (table "
+                  f"{table}): not the composition's bits ({int((a != b).sum())} differ) or "
+                  "two launches differ")
+    n_valid = int(p.valid.sum())
+    del p, fields, want, got, again
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def out_grads(n, table):
+        if table:
+            t = torch.randn((n, 9), generator=gen, device=dev)
+            return (t[:, 0:2], None, t[:, 2:5], t[:, 5:8], t[:, 8])
+        return tuple(torch.randn(s, generator=gen, device=dev)
+                     for s in ((n, 2), (n,), (n, 3), (n, 3), (n,)))
+
+    def vjp_errors(name, leaves, cap):
+        """The backward (both modes, with the camera's gradient) against
+        the plain VJP in float64: each leaf's and the camera block's max
+        |Δ|/peak, (kernel, plain float32). The kernel within 2× the plain
+        float32 VJP's own error (+ 1e-6 of the peak, 1e-5 for the
+        camera's sum over every row) and within `cap`. A row that float64
+        culls and float32 keeps, or the reverse, takes another branch
+        (the table masks its gradient): its output gradients are zero."""
+        v64 = P.project_plain(*(t.double() for t in leaves), cam64, cfg).valid
+        flip = P.project_plain(*leaves, cam, cfg).valid != v64
+        n_flip = int(flip.sum())
+        del v64
+        err = {"rows_culled_otherwise_in_float64": n_flip}
+        for table in (False, True):
+            grads = tuple(None if x is None else torch.where(
+                flip.view(-1, *([1] * (x.dim() - 1))), 0.0, x)
+                for x in out_grads(leaves[0].shape[0], table))
+            d = P.project_backward(leaves, cam, camp, cfg, grads, table, camera=True)
+            d2 = P.project_backward(leaves, cam, camp, cfg, grads, table, camera=True)
+            d0 = P.project_backward(leaves, cam, camp, cfg, grads, table)
+            check(all(torch.equal(a, b) for a, b in zip(d, d2)) and d0[5] is None
+                  and all(torch.equal(a, b) for a, b in zip(d[:5], d0[:5])),
+                  f"projection backward {name} (table {table}): two launches differ, or "
+                  "the camera's gradient moved the leaves'")
+            d32 = P.project_vjp_plain(*leaves, cam, cfg, *grads, masked=table, camera=True)
+            d64 = P.project_vjp_plain(*(t.double() for t in leaves), cam64, cfg,
+                                      *(None if x is None else x.double() for x in grads),
+                                      masked=table, camera=True)
+            rel = lambda a, b: float((a.double() - b).abs().max() / b.abs().max())
+            e = {f: (rel(a, c), rel(b, c))
+                 for f, a, b, c in zip((*FIELDS, "camera"), d, d32, d64)}
+            err[str(table)] = e
+            for f, (k, p32) in e.items():
+                lim = min(cap, 2.0 * p32 + (1e-5 if f == "camera" else 1e-6))
+                check(k <= lim, f"projection backward {name} (table {table}): {f} |Δ|/peak "
+                      f"{k:.2e} against float64 (plain float32 {p32:.2e}, limit {lim:.2e}; "
+                      f"{n_flip} rows culled otherwise in float64)")
+            del d, d2, d0, d32, d64
+        print(f"# projection backward {name} on {card}: max |Δ|/peak against the plain VJP "
+              f"in float64 (kernel, plain float32): {err}")
+        return err
+
+    def times(name, leaves):
+        n, k = leaves[0].shape[0], leaves[3].shape[1]
+        grads, grads_t = out_grads(n, False), out_grads(n, True)
+        table_g = torch.cat([grads_t[0], grads_t[2], grads_t[3], grads_t[4][:, None]], dim=1)
+        in_b = 4 * (11 + 3 * k) * n  # the leaves: means, log_scales, quats, sh, logit
+        lg = [t.detach().requires_grad_() for t in leaves]
+
+        def plain_fwd_bwd():
+            q = P.table_plain(P.project_plain(*lg, cam, cfg))
+            torch.autograd.grad((q * table_g).sum(), lg)
+        out = dict(
+            n=n, fwd_ms=cuda_ms(lambda: P.project_forward(leaves, cam, camp, cfg, False), 20),
+            table_ms=cuda_ms(lambda: P.project_forward(leaves, cam, camp, cfg, True), 20),
+            bwd_ms=cuda_ms(lambda: P.project_backward(leaves, cam, camp, cfg, grads, False),
+                           20),
+            bwd_table_ms=cuda_ms(lambda: P.project_backward(leaves, cam, camp, cfg, grads_t,
+                                                            True), 20),
+            bwd_camera_ms=cuda_ms(lambda: P.project_backward(leaves, cam, camp, cfg, grads,
+                                                             False, camera=True), 20),
+            plain_fwd_ms=cuda_ms(lambda: P.project_plain(*leaves, cam, cfg), 3),
+            plain_bwd_ms=cuda_ms(lambda: P.project_vjp_plain(*leaves, cam, cfg, *grads), 3),
+            plain_table_fwd_bwd_ms=cuda_ms(plain_fwd_bwd, 3),
+            fwd_bound=bound(in_b + 49 * n, 0)[0], table_bound=bound(in_b + 36 * n, 0)[0],
+            bwd_bound=bound(2 * in_b + 40 * n, 0)[0],
+            bwd_table_bound=bound(2 * in_b + 36 * n, 0)[0])
+        print(f"# projection {name} on {card}: " + ", ".join(
+            f"{k_} {v:.4f}" if isinstance(v, float) else f"{k_} {v}" for k_, v in out.items()))
+        return out
+
+    errors = {"bonsai_sh3": vjp_errors(f"bonsai {n} SH 3 view 0 ({n_valid} valid)", leaves,
+                                       1e-4)}
+    shapes = {"bonsai_sh3": times("bonsai SH 3 (the exact step's rows)", leaves)}
+    # a lazy resort's home rows: the orbit's derived caps, view 0
+    cfg_l = autotune(g, cams, cfg)
+    gp = perturb(g)
+    del g, leaves
+    tr = gt.LazyTrainer(gp, cfg_l, torch.optim.Adam(gp.parameters(), lr=1e-3))
+    plan = tr.resort(cam)
+    hp = [getattr(tr.hp, f).detach() for f in FIELDS]
+    name = f"lazy home rows ({plan.nh}, fat_cap {cfg_l.fat_cap})"
+    errors["lazy_home_rows"] = vjp_errors(name, hp, 1e-3)
+    shapes["lazy_home_rows"] = times(name, hp)
+    del tr, gp, hp, plan
+    torch.cuda.empty_cache()
+    gg = garden_like(n=GARDEN_SPLATS, seed=1, sh_degree=3, device=dev)
+    gl = [getattr(gg, f).detach() for f in FIELDS]
+    del gg
+    errors["garden_sh3"] = vjp_errors("garden SH 3", gl, 1e-3)
+    shapes["garden_sh3"] = times("garden SH 3", gl)
+    del gl
+    torch.cuda.empty_cache()
+    b = shapes["bonsai_sh3"]
+    worst = max(k for by_mode in errors.values() for mode, e in by_mode.items()
+                if mode != "rows_culled_otherwise_in_float64" for k, _ in e.values())
+    results = [dict(name="project_forward", route="cuda", source="gsjax_torch/csrc/project.cu",
+                    replaces="none (gsjax/render/project.py and sh.py are XLA)",
+                    max_abs_err=0.0, ms=b["fwd_ms"], plain_ms=b["plain_fwd_ms"],
+                    bound_ms=b["fwd_bound"], bound_by="bytes", library_ms=None),
+               dict(name="project_backward", route="cuda", source="gsjax_torch/csrc/project.cu",
+                    replaces="none (autograd of gsjax/render/project.py and sh.py)",
+                    max_abs_err=worst, ms=b["bwd_ms"], plain_ms=b["plain_bwd_ms"],
+                    bound_ms=b["bwd_bound"], bound_by="bytes", library_ms=None)]
+    return results, dict(errors=errors, shapes=shapes)
+
 def app_launches(name: str, res: dict) -> dict:
     """The kernels an example app's run launches on the card (LAUNCHES
-    keys, nonzero only): A and B once a measuring pass and once a render
-    (a band's, in sharded_render) with the exact layout, C once a stream
-    render, D and D's class sum once a training step."""
+    keys, nonzero only): A, B and the projection once a measuring pass and
+    once a render (a band's, in sharded_render) with the exact layout, C
+    once a stream render, D, D's class sum and the projection's backward
+    once a training step."""
     if name == "ply_converter":
         return {}
     passes, renders = res["demand"]["passes"], res["renders"]
     if name == "sharded_render":  # derive_shard_caps' pass; a render and a step of 8 bands
         ab = passes + 1 + 2 * 8
-        return {"repeat": ab, "expand": ab}
-    want = {"repeat": passes + renders, "expand": passes + renders, "stream_fwd": renders}
+        # and derive_shard_caps' rect ranges, a projection without A or B
+        return {"repeat": ab, "expand": ab, "project_fwd": ab + 1, "project_bwd": 8}
+    want = {"repeat": passes + renders, "expand": passes + renders, "stream_fwd": renders,
+            "project_fwd": passes + renders}
     if name == "train_fit":
-        want.update(stream_bwd=len(res["losses"]), stream_class_sum=len(res["losses"]))
+        want.update(stream_bwd=len(res["losses"]), stream_class_sum=len(res["losses"]),
+                    project_bwd=len(res["losses"]))
     return want
 
 
@@ -3100,13 +3278,22 @@ def main() -> int:
     examples = examples_phase(dev, card)
     print(f"# examples: {time.perf_counter() - t0:.2f} s")
 
-    # A-F: kernel → the training run its launches are read from (A, B:
-    # both); the probes G-J: their runs in phase 11
+    # 21. the projection pair at the cells' shapes --------------------------
+    t0 = time.perf_counter()
+    proj_results, projection = projection_phase(dev, card)
+    results += proj_results
+    print(f"# projection: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # A-F and the projection pair: kernel → the training run its launches
+    # are read from (A, B: both); the probes G-J: their runs in phase 11
     key = {"repeat_fat_parents": ("stream", "repeat"), "expand_pairs": ("stream", "expand"),
            "stream_forward": ("stream", "stream_fwd"),
            "stream_backward": ("stream", "stream_bwd"),
            "stream_class_sum": ("stream", "stream_class_sum"),
-           "slots_forward": ("pallas", "slots_fwd"), "slots_backward": ("pallas", "slots_bwd")}
+           "slots_forward": ("pallas", "slots_fwd"), "slots_backward": ("pallas", "slots_bwd"),
+           "project_forward": ("stream", "project_fwd"),
+           "project_backward": ("stream", "project_bwd")}
     for r in results:
         backend, counter = key[r["name"]]
         r["launches"] = train[backend]["launches"][counter]
@@ -3132,7 +3319,7 @@ def main() -> int:
                        stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train,
                        probes=probe_detail, lazy=lazy, scene_io=scene_io, autotune=tuned,
                        garden=garden, reference=reference, legacy=legacy, viewer=viewer,
-                       sharded=sharded, examples=examples),
+                       sharded=sharded, examples=examples, projection=projection),
                   fh, indent=1)
 
     print(json.dumps({"kernels": results}))

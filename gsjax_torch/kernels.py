@@ -4,11 +4,13 @@ The sources under gsjax_torch/csrc/ compile with nvcc, one process per
 source and all at once, then link into a shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so the build takes
 seconds). There are two libraries: "path", the serving and training
-path's kernels A-F, and "probes", the probes G-J and the empty launch
-that measures their launch floor (gsjax_torch.tools, on no path), so that the path's first call never compiles the probes. Each
-is built at its first use, into gsjax_torch/_build/, under a file name
-that carries a hash of its sources, headers and flags: an edited source
-rebuilds its library, an unchanged one loads the cached file.
+path's kernels A-F and the projection pair (project.cu), and "probes",
+the probes G-J and the empty launch that measures their launch floor
+(gsjax_torch.tools, on no path), so that the path's first call never
+compiles the probes. Each is built at its first use, into
+gsjax_torch/_build/, under a file name that carries a hash of its
+sources, headers and flags: an edited source rebuilds its library, an
+unchanged one loads the cached file.
 
 `-fmad=false` is load-bearing: the ellipse-cull quadratics of the repeat
 and expansion kernels must round exactly as their plain PyTorch versions
@@ -40,7 +42,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # library → its sources, and the headers they include
 SOURCES = {"path": ("repeat.cu", "expand.cu", "stream_fwd.cu", "stream_bwd.cu",
-                    "slots_fwd.cu", "slots_bwd.cu"),
+                    "slots_fwd.cu", "slots_bwd.cu", "project.cu"),
            "probes": ("probe_mosaic.cu", "probe_compact.cu", "probe_scalars.cu",
                       "probe_chunk.cu", "probe_empty.cu")}
 HEADERS = {"path": ("common.cuh", "blend.cuh"), "probes": ("common.cuh", "probe.cuh")}
@@ -51,7 +53,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0, "stream_bwd": 0,
-            "stream_class_sum": 0, "slots_fwd": 0, "slots_bwd": 0, "probe_mosaic": 0,
+            "stream_class_sum": 0, "slots_fwd": 0, "slots_bwd": 0, "project_fwd": 0,
+            "project_bwd": 0, "probe_mosaic": 0,
             "probe_compact": 0, "probe_scalars": 0, "probe_chunk": 0, "probe_empty": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -85,6 +88,21 @@ _SIGNATURES = {"path": {
     # chunk, alpha_clamp, alpha_min, eps_T, datt, stream
     "gsjax_slots_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _F, _F, _P, _P),
+    # means, log_scales, quats, sh, opacity_logits, cam, n, k, near_cull,
+    # lowpass, radius_sigma, alpha_min, cx, cy, width, height, home, valid,
+    # att, stream
+    "gsjax_project_forward": (_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F,
+                              _F, _F, _F, _P, _P, _P, _P),
+    # means, log_scales, quats, sh, opacity_logits, cam, n, k, near_cull,
+    # lowpass, radius_sigma, alpha_min, cx, cy, width, height, then (pointer,
+    # row stride) for g_mean2d, g_depth, g_conic, g_rgb, g_opacity, masked,
+    # d_means, d_log_scales, d_quats, d_sh, d_opacity_logits, d_cam_part,
+    # d_cam, stream
+    "gsjax_project_backward": (_P, _P, _P, _P, _P, _P, _L, _I, _F, _F, _F, _F, _F,
+                               _F, _F, _F, _P, _L, _P, _L, _P, _L, _P, _L, _P, _L,
+                               _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    # n; returns the floats of the backward's d_cam_part for n rows
+    "gsjax_project_cam_scratch": (_L,),
 }, "probes": {
     # x, o, s, stream
     "gsjax_probe_mosaic": (_P, _P, _P, _P),

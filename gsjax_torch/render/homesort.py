@@ -36,9 +36,9 @@ from gsjax_torch import kernels, trace
 from gsjax_torch.core.camera import Camera
 from gsjax_torch.core.config import RenderConfig
 from gsjax_torch.render.common import box_inside, box_qmin, depth_bits, f32_scalar, tile_rect
-from gsjax_torch.render.project import ProjectedSplats
+from gsjax_torch.render.project import HOME_COLS, ProjectedSplats, home_columns, home_splats
 
-PCOLS = 11  # mean2d(2) + depth(1) + conic(3) + radius(1) + rgb(3) + opacity(1)
+PCOLS = max(hi for _, hi in HOME_COLS.values())  # the fields' columns; a row has a zero more
 _RPT_STEP = 2048  # fat_cap granularity, kept from the reference
 _BIG = float(1 << 30)  # fb/fbe of the non-fat pad rows
 
@@ -510,26 +510,14 @@ def build_home_layout(p: ProjectedSplats, cam: Camera, cfg: RenderConfig,
         side="left",
     ).to(torch.int32)
 
-    packed_n = torch.cat(
-        [p.mean2d, p.depth[:, None], p.conic, p.radius[:, None], p.rgb,
-         p.opacity[:, None], torch.zeros_like(p.depth)[:, None]],
-        dim=-1,
-    )  # [N, 12]; the tail rows carry the same column order
+    packed_n = home_columns(p)  # [N, 12]; the tail rows carry the same column order
     ph = home_gather(packed_n, tail_tab, perm, inv_ext[:n], inv_ext[n:], seg_base)
     wpa_h, wpb_h = wpa[perm], wpb[perm]
     win = torch.stack(
         [wpa_h // 16384, wpa_h % 16384, wpb_h // 16384, wpb_h % 16384], dim=-1
     ).to(torch.int32)
     hs = torch.clamp(home_sorted, max=t_sent - 1)
-    p_home = ProjectedSplats(
-        mean2d=ph[:, 0:2],
-        depth=ph[:, 2],
-        conic=ph[:, 3:6],
-        radius=ph[:, 6],
-        rgb=ph[:, 7:10],
-        opacity=ph[:, 10],
-        valid=home_sorted < t_sent,  # liveness = the home-key sentinel
-    )
+    p_home = home_splats(ph, home_sorted < t_sent)  # liveness = the home-key sentinel
     layout = HomeLayout(
         perm=perm,
         seg_starts=seg_starts,

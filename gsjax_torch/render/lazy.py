@@ -55,7 +55,7 @@ from gsjax_torch.render.binning import build_band_bins, build_tile_bins
 from gsjax_torch.render.composite import assemble_band, clipped_pair_stream
 from gsjax_torch.render.homesort import build_home_layout, reduce_copy_segments
 from gsjax_torch.render.pipeline import _project_any
-from gsjax_torch.render.project import project
+from gsjax_torch.render.project import project_table
 from gsjax_torch.render.stream import blend_stream
 
 #: the widest column group the extract and fold passes pack at once: the
@@ -358,17 +358,13 @@ def _fold_group(m_g, h_g, h0_g, cnt, kc: int, reduce: str, plan: FramePlan):
 def lazy_cols(hp: Gaussians, cam: Camera, cfg: RenderConfig):
     """The blend's attribute table [NH, 9] (composite.att_table's columns:
     mean2d, conic, rgb, opacity) of the home-order parameters under the
-    current camera. A row the fresh projection culls gets opacity 0, mean
-    0 and conic (1, 0, 1): it keeps its stale pairs and draws nothing.
-    The means are absolute, as kernel C reads them (the reference's are
-    relative to the home tile only for its bf16 split table)."""
-    p = project(hp, cam, cfg)
-    val = p.valid
-    cols = (torch.where(val, p.mean2d[:, 0], 0.0), torch.where(val, p.mean2d[:, 1], 0.0),
-            torch.where(val, p.conic[:, 0], 1.0), torch.where(val, p.conic[:, 1], 0.0),
-            torch.where(val, p.conic[:, 2], 1.0), p.rgb[:, 0], p.rgb[:, 1], p.rgb[:, 2],
-            torch.where(val, p.opacity, 0.0))
-    return torch.stack(cols, dim=-1)
+    current camera (project.project_table: on the card the projection
+    kernel writes it). A row the fresh projection culls gets opacity 0,
+    mean 0 and conic (1, 0, 1): it keeps its stale pairs and draws
+    nothing. The means are absolute, as kernel C reads them (the
+    reference's are relative to the home tile only for its bf16 split
+    table)."""
+    return project_table(hp, cam, cfg)
 
 
 def _background(cfg: RenderConfig, like: torch.Tensor) -> torch.Tensor:

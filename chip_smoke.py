@@ -240,8 +240,19 @@ Phases (any failure exits non-zero; there is no CPU path):
                branch, not rounding; counted); each kernel's time
                alone at the three shapes, beside its byte bound and the
                plain version's time.
-Prints the kernels' JSON line (A-J, D's class sum and the projection
-pair, each with its
+ 22. home gather — the home gather pair (csrc/home_gather.cu: Q the
+               gather, Q' its transpose) at the cells' shapes: bonsai_like
+               1,200,000 and garden_like 5,000,000 at SH degree 3 on view
+               0, resolve_fat_caps' default budgets (bonsai F 2,400,256,
+               NH 2,700,000; garden F 4,194,304, NH 7,097,152): Q and Q'
+               launched once each by an exact training step, Q alone by a
+               frame; on the layout's own indices Q bit-equal to
+               cat([x, tail_x])[perm], Q' (a random cotangent) no farther
+               from the float64 sums than the plain reduce_home_rows, two
+               launches of each bit-equal; each kernel's time alone
+               beside its byte bound and the plain version's time.
+Prints the kernels' JSON line (A-J, D's class sum, the projection pair
+and the home gather pair, each with its
 time, its plain version's, its bound and its launches: A-F in their
 path's training run (A-D and D' also `sharded_launches`, phase 19's
 step, and `examples_launches`, phase 20a's card runs summed), G-J in their probe's timed run in phase 11; a probe's times and bound
@@ -309,15 +320,20 @@ EXAMPLE_CPU_TIMEOUT_S = 600  # phase 20a's CPU side, after the card's 20a-20c
 EXAMPLE_CPU_THREADS = 6  # of the chip machine's 8 cores
 # the kernels each path launches (LAUNCHES keys) serving, and besides
 # those when training; every backend projects through the projection
-# pair (PROJECT_KERNELS), a camera's gradient included
-SERVE_KERNELS = {"stream": ("repeat", "expand", "stream_fwd", "project_fwd"),
-                 "pallas": ("repeat", "expand", "slots_fwd", "project_fwd"),
-                 "xla": ("repeat", "expand", "project_fwd"),
+# pair (PROJECT_KERNELS), a camera's gradient included; an exact layout
+# (LAYOUT_KERNELS, once a layout: A, B and the home gather Q) has the
+# home gather's backward Q' in a training step
+LAYOUT_KERNELS = ("repeat", "expand", "home_gather_fwd")
+SERVE_KERNELS = {"stream": (*LAYOUT_KERNELS, "stream_fwd", "project_fwd"),
+                 "pallas": (*LAYOUT_KERNELS, "slots_fwd", "project_fwd"),
+                 "xla": (*LAYOUT_KERNELS, "project_fwd"),
                  "oracle": ("project_fwd",)}  # plain-PyTorch blends
-TRAIN_KERNELS = {"stream": ("stream_bwd", "stream_class_sum", "project_bwd"),
-                 "pallas": ("slots_bwd", "project_bwd"), "xla": ("project_bwd",),
-                 "oracle": ("project_bwd",)}
+TRAIN_KERNELS = {"stream": ("stream_bwd", "stream_class_sum", "project_bwd",
+                            "home_gather_bwd"),
+                 "pallas": ("slots_bwd", "project_bwd", "home_gather_bwd"),
+                 "xla": ("project_bwd", "home_gather_bwd"), "oracle": ("project_bwd",)}
 PROJECT_KERNELS = ("project_fwd", "project_bwd")
+HOME_GATHER_KERNELS = ("home_gather_fwd", "home_gather_bwd")
 # G-J (LAUNCHES keys = kernel-line names), on no path: phase 11 only
 PROBE_KERNELS = ("probe_mosaic", "probe_compact", "probe_scalars", "probe_chunk")
 # J variants whose work is a zero-trip loop and an untaken branch: their
@@ -754,8 +770,8 @@ def lazy_phase(g, cams, cfg, dev, card, exact) -> dict:
         return plan, dict(kernels.LAUNCHES)
 
     plan, launched = resort(cams_l[0])
-    want = {k: int(k in ("repeat", "expand", "project_fwd")) for k in launched}
-    check(launched == want, f"lazy: the resort launched {launched} (want A, B and the "
+    want = {k: int(k in (*LAYOUT_KERNELS, "project_fwd")) for k in launched}
+    check(launched == want, f"lazy: the resort launched {launched} (want A, B, Q and the "
           "projection once)")
     ovf = {k: int(v) for k, v in plan.ovf.items()}
     check(all(v == 0 for k, v in ovf.items() if k != "n_pairs"),
@@ -1263,7 +1279,7 @@ def autotune_phase(g, cams, dev, card) -> dict:
     total_ms = (time.perf_counter() - t_all) * 1e3
     derive_ms = (time.perf_counter() - t_derive) * 1e3
     launched = dict(kernels.LAUNCHES)
-    want = {k: len(cams) * int(k in ("repeat", "expand", "project_fwd")) for k in launched}
+    want = {k: len(cams) * int(k in (*LAYOUT_KERNELS, "project_fwd")) for k in launched}
     keys = ("n_valid", "n_live_prim", "n_copies", "n_pairs", "n_fat_overflow")
     for v, m in enumerate(ms):
         print(f"# autotune view {v}: " + ", ".join(f"{k} {m[k]}" for k in keys)
@@ -1335,7 +1351,7 @@ def garden_phase(dev, card) -> dict:
         launched = dict(kernels.LAUNCHES)
         ovf = {k: int(v) for k, v in plan.ovf.items() if k != "n_pairs"}
         check(not any(ovf.values()), f"garden: resort {r} overflow {ovf}")
-        check(launched == {k: int(k in ("repeat", "expand", "project_fwd")) for k in launched},
+        check(launched == {k: int(k in (*LAYOUT_KERNELS, "project_fwd")) for k in launched},
               f"garden: the resort launched {launched}")
         kernels.reset_launches()
         for _ in range(LAZY_STEPS):
@@ -1589,9 +1605,11 @@ def legacy_phase(dev, card) -> dict:
             torch.mean((img - target) ** 2).backward()
             torch.cuda.synchronize()
             # the blend's kernels and the projection pair once; no layout
-            # kernel (A, B) in legacy mode
+            # kernel (A, B) in legacy mode; the home gather pair where a
+            # legacy home layout is built (stream)
             want = {k: 1 for k in SERVE_KERNELS[backend] + TRAIN_KERNELS[backend]
-                    if k not in ("repeat", "expand")}
+                    if k not in ("repeat", "expand")
+                    and (backend == "stream" or k not in HOME_GATHER_KERNELS)}
             check(nonzero(kernels.LAUNCHES) == want, f"legacy {backend} span {span}: "
                   f"forward + backward launched {nonzero(kernels.LAUNCHES)}, want {want}")
             check(not any(ovf_of(aux).values()), f"legacy {backend}: overflow {ovf_of(aux)}")
@@ -2334,24 +2352,125 @@ def projection_phase(dev, card) -> tuple:
                     bound_ms=b["bwd_bound"], bound_by="bytes", library_ms=None)]
     return results, dict(errors=errors, shapes=shapes)
 
+
+def home_gather_phase(dev, card) -> tuple:
+    """22. The home gather pair (csrc/home_gather.cu) at the cells' shapes
+    (the module docstring's phase 22). Returns the two kernel-line
+    entries (garden's numbers) and, by scene, the launches, errors and
+    times."""
+    import torch
+
+    import gsjax_torch as gt
+    from gsjax_torch import kernels
+    from gsjax_torch.bench.run import orbit_cameras
+    from gsjax_torch.bench.synth import bonsai_like, garden_like
+    from gsjax_torch.render import homesort as hs
+    from gsjax_torch.render.project import home_columns, project
+
+    cfg = gt.RenderConfig(backend="stream", chunk=128)
+    cam = orbit_cameras(30, WIDTH, HEIGHT, device=dev)[0]
+    tiles = (cfg.tiles_x(WIDTH), cfg.tiles_y(HEIGHT))
+    gen = torch.Generator(device=dev).manual_seed(22)
+    counts = lambda: tuple(kernels.LAUNCHES[k] for k in HOME_GATHER_KERNELS)
+    out = {}
+    for name, make in (("bonsai", lambda: bonsai_like(n=N_SPLATS, seed=0, sh_degree=3,
+                                                      device=dev)),
+                       ("garden", lambda: garden_like(n=GARDEN_SPLATS, seed=1, sh_degree=3,
+                                                      device=dev))):
+        g = make()
+        kernels.reset_launches()
+        with torch.no_grad():
+            gt.render(g, cam, cfg)
+        frame = counts()
+        kernels.reset_launches()
+        gt.render(g, cam, cfg).square().mean().backward()
+        step = counts()
+        check(frame == (1, 0) and step == (1, 1), f"home gather {name}: launches (Q, Q') "
+              f"{frame} a frame, {step} an exact step (want (1, 0), (1, 1))")
+        with torch.no_grad():
+            p = project(g, cam, cfg)
+            _, layout, ex = hs.build_home_layout(p, cam, cfg, return_extras=True)
+            x, tail = home_columns(p), hs._exact_rows(p, *tiles, cfg)[5]
+        del g
+        perm, inv, inv_tail, seg_base = layout.perm, ex["inv"], ex["inv_tail"], ex["seg_base"]
+        n, f, nh = x.shape[0], tail.shape[0], perm.shape[0]
+        q = hs.launch_home_gather(x, tail, perm)
+        check(torch.equal(q, torch.cat([x, tail])[perm])
+              and torch.equal(q, hs.launch_home_gather(x, tail, perm)),
+              f"home gather {name}: Q not the plain gather's bits, or two launches differ")
+        d = torch.randn((nh, x.shape[1]), generator=gen, device=dev)
+        d[:, -1] = 0.0
+        dk = hs.launch_reduce_home_rows(d, inv, inv_tail, seg_base)
+        check(torch.equal(dk, hs.launch_reduce_home_rows(d, inv, inv_tail, seg_base)),
+              f"home gather {name}: two launches of Q' differ")
+        dp = hs.reduce_home_rows(d, f, inv, inv_tail, seg_base)
+        d64 = torch.cat([d.double(), d.new_zeros((1, d.shape[1]), dtype=torch.float64)])
+        copies = int(seg_base[-1])
+        lens = seg_base[1:] - seg_base[:-1]
+        want = d64[torch.clamp(inv, max=nh)].index_add_(
+            0, torch.repeat_interleave(torch.arange(n, device=dev), lens),
+            d64[torch.clamp(inv_tail[:copies], max=nh)])
+        err = tuple(float((a.double() - want).abs().max()) for a in (dk, dp))
+        check(err[0] <= err[1], f"home gather {name}: Q' |Δ| {err[0]:.3e} from float64, "
+              f"farther than the plain version's {err[1]:.3e}")
+        del d64, want, dp, q, dk
+        kept_prim = int((inv < nh).sum())
+        kept_copies = int((inv_tail[:copies] < nh).sum())
+        # Q: perm, the source row, the output row; Q': inv, seg_base, the
+        # kept primary and copy rows, inv_tail over the segments, the output
+        fwd_bytes = nh * (8 + 48 + 48)
+        bwd_bytes = n * (8 + 8 + 48) + 8 + 48 * kept_prim + copies * 8 + 48 * kept_copies
+        r = dict(n=n, f=f, nh=nh, copies=copies, splats_with_copies=int((lens > 0).sum()),
+                 longest_segment=int(lens.max()), launches_frame=frame,
+                 launches_exact_step=step, bwd_err=err[0], plain_bwd_err=err[1],
+                 fwd_ms=cuda_ms(lambda: hs.launch_home_gather(x, tail, perm), 20),
+                 bwd_ms=cuda_ms(lambda: hs.launch_reduce_home_rows(d, inv, inv_tail,
+                                                                   seg_base), 20),
+                 plain_fwd_ms=cuda_ms(lambda: torch.cat([x, tail])[perm], 5),
+                 plain_bwd_ms=cuda_ms(lambda: hs.reduce_home_rows(d, f, inv, inv_tail,
+                                                                  seg_base), 5),
+                 fwd_bound=bound(fwd_bytes, 0)[0], bwd_bound=bound(bwd_bytes, 0)[0])
+        r["fwd_share"], r["bwd_share"] = (r["fwd_bound"] / r["fwd_ms"],
+                                          r["bwd_bound"] / r["bwd_ms"])
+        print(f"# home gather {name} on {card}: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
+        out[name] = r
+        del x, tail, perm, inv, inv_tail, seg_base, d, p, layout, ex
+        torch.cuda.empty_cache()
+    gd = out["garden"]
+    results = [dict(name="home_gather_forward", route="cuda",
+                    source="gsjax_torch/csrc/home_gather.cu",
+                    replaces="none (gsjax/render/homesort.py's gather is XLA)",
+                    max_abs_err=0.0, ms=gd["fwd_ms"], plain_ms=gd["plain_fwd_ms"],
+                    bound_ms=gd["fwd_bound"], bound_by="bytes", library_ms=None),
+               dict(name="home_gather_backward", route="cuda",
+                    source="gsjax_torch/csrc/home_gather.cu",
+                    replaces="none (gsjax/render/homesort.py::_home_gather_bwd is XLA)",
+                    max_abs_err=gd["bwd_err"], ms=gd["bwd_ms"], plain_ms=gd["plain_bwd_ms"],
+                    bound_ms=gd["bwd_bound"], bound_by="bytes", library_ms=None)]
+    return results, out
+
+
 def app_launches(name: str, res: dict) -> dict:
     """The kernels an example app's run launches on the card (LAUNCHES
-    keys, nonzero only): A, B and the projection once a measuring pass and
-    once a render (a band's, in sharded_render) with the exact layout, C
-    once a stream render, D, D's class sum and the projection's backward
-    once a training step."""
+    keys, nonzero only): A, B, the home gather Q and the projection once a
+    measuring pass and once a render (a band's, in sharded_render) with
+    the exact layout, C once a stream render, D, D's class sum, Q' and the
+    projection's backward once a training step (a band's)."""
     if name == "ply_converter":
         return {}
     passes, renders = res["demand"]["passes"], res["renders"]
     if name == "sharded_render":  # derive_shard_caps' pass; a render and a step of 8 bands
         ab = passes + 1 + 2 * 8
         # and derive_shard_caps' rect ranges, a projection without A or B
-        return {"repeat": ab, "expand": ab, "project_fwd": ab + 1, "project_bwd": 8}
-    want = {"repeat": passes + renders, "expand": passes + renders, "stream_fwd": renders,
+        return {"repeat": ab, "expand": ab, "home_gather_fwd": ab, "project_fwd": ab + 1,
+                "project_bwd": 8, "home_gather_bwd": 8}
+    want = {"repeat": passes + renders, "expand": passes + renders,
+            "home_gather_fwd": passes + renders, "stream_fwd": renders,
             "project_fwd": passes + renders}
     if name == "train_fit":
         want.update(stream_bwd=len(res["losses"]), stream_class_sum=len(res["losses"]),
-                    project_bwd=len(res["losses"]))
+                    project_bwd=len(res["losses"]), home_gather_bwd=len(res["losses"]))
     return want
 
 
@@ -3285,15 +3404,24 @@ def main() -> int:
     print(f"# projection: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
 
-    # A-F and the projection pair: kernel → the training run its launches
-    # are read from (A, B: both); the probes G-J: their runs in phase 11
+    # 22. the home gather pair at the cells' shapes ---------------------------
+    t0 = time.perf_counter()
+    hg_results, home_gather = home_gather_phase(dev, card)
+    results += hg_results
+    print(f"# home gather: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # A-F and the two pairs: kernel → the training run its launches are
+    # read from (A, B: both); the probes G-J: their runs in phase 11
     key = {"repeat_fat_parents": ("stream", "repeat"), "expand_pairs": ("stream", "expand"),
            "stream_forward": ("stream", "stream_fwd"),
            "stream_backward": ("stream", "stream_bwd"),
            "stream_class_sum": ("stream", "stream_class_sum"),
            "slots_forward": ("pallas", "slots_fwd"), "slots_backward": ("pallas", "slots_bwd"),
            "project_forward": ("stream", "project_fwd"),
-           "project_backward": ("stream", "project_bwd")}
+           "project_backward": ("stream", "project_bwd"),
+           "home_gather_forward": ("stream", "home_gather_fwd"),
+           "home_gather_backward": ("stream", "home_gather_bwd")}
     for r in results:
         backend, counter = key[r["name"]]
         r["launches"] = train[backend]["launches"][counter]
@@ -3319,7 +3447,8 @@ def main() -> int:
                        stages_ms=stages, peak_gib=peak_gb, loss0=loss0, train=train,
                        probes=probe_detail, lazy=lazy, scene_io=scene_io, autotune=tuned,
                        garden=garden, reference=reference, legacy=legacy, viewer=viewer,
-                       sharded=sharded, examples=examples, projection=projection),
+                       sharded=sharded, examples=examples, projection=projection,
+                       home_gather=home_gather),
                   fh, indent=1)
 
     print(json.dumps({"kernels": results}))

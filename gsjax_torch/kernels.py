@@ -4,7 +4,8 @@ The sources under gsjax_torch/csrc/ compile with nvcc, one process per
 source and all at once, then link into a shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so the build takes
 seconds). There are two libraries: "path", the serving and training
-path's kernels A-F and the projection pair (project.cu), and "probes",
+path's kernels A-F, the projection pair (project.cu) and the home
+gather pair (home_gather.cu), and "probes",
 the probes G-J and the empty launch that measures their launch floor
 (gsjax_torch.tools, on no path), so that the path's first call never
 compiles the probes. Each is built at its first use, into
@@ -42,7 +43,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # library → its sources, and the headers they include
 SOURCES = {"path": ("repeat.cu", "expand.cu", "stream_fwd.cu", "stream_bwd.cu",
-                    "slots_fwd.cu", "slots_bwd.cu", "project.cu"),
+                    "slots_fwd.cu", "slots_bwd.cu", "project.cu", "home_gather.cu"),
            "probes": ("probe_mosaic.cu", "probe_compact.cu", "probe_scalars.cu",
                       "probe_chunk.cu", "probe_empty.cu")}
 HEADERS = {"path": ("common.cuh", "blend.cuh"), "probes": ("common.cuh", "probe.cuh")}
@@ -54,7 +55,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"repeat": 0, "expand": 0, "stream_fwd": 0, "stream_bwd": 0,
             "stream_class_sum": 0, "slots_fwd": 0, "slots_bwd": 0, "project_fwd": 0,
-            "project_bwd": 0, "probe_mosaic": 0,
+            "project_bwd": 0, "home_gather_fwd": 0, "home_gather_bwd": 0, "probe_mosaic": 0,
             "probe_compact": 0, "probe_scalars": 0, "probe_chunk": 0, "probe_empty": 0}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -103,6 +104,10 @@ _SIGNATURES = {"path": {
                                _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # n; returns the floats of the backward's d_cam_part for n rows
     "gsjax_project_cam_scratch": (_L,),
+    # x, tail_x, perm, n, f, nh, out, stream
+    "gsjax_home_gather_forward": (_P, _P, _P, _L, _L, _L, _P, _P),
+    # d, inv, inv_tail, seg_base, n, f, nh, dx, stream
+    "gsjax_home_gather_backward": (_P, _P, _P, _P, _L, _L, _L, _P, _P),
 }, "probes": {
     # x, o, s, stream
     "gsjax_probe_mosaic": (_P, _P, _P, _P),

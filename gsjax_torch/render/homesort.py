@@ -227,18 +227,79 @@ def reduce_home_rows(d, f: int, inv, inv_tail, seg_base):
     return dx
 
 
+def _kernel_rows(name: str, rows, **index):
+    """Raise unless `rows` are float32 [R, 12] row tables, contiguous and
+    16-byte aligned, and `index` int64 vectors, contiguous, all on one
+    CUDA device (what the home gather kernels read)."""
+    dev = next(iter(rows.values())).device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for k, t in rows.items():
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != PCOLS + 1
+                or not t.is_contiguous() or t.data_ptr() % 16 or t.device != dev):
+            raise ValueError(f"{name}: {k} must be a contiguous, 16-byte aligned float32 "
+                             f"[R, {PCOLS + 1}] on {dev}, not {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    for k, t in index.items():
+        if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: {k} must be a contiguous int64 vector on {dev}, not "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def launch_home_gather(x, tail_x, perm):
+    """Kernel Q (csrc/home_gather.cu): cat([x, tail_x])[perm] in one pass,
+    with no concatenated copy; a perm entry outside [0, N + F) traps."""
+    _kernel_rows("home_gather", {"x": x, "tail_x": tail_x}, perm=perm)
+    n, f, nh = x.shape[0], tail_x.shape[0], perm.shape[0]
+    out = torch.empty((nh, x.shape[1]), dtype=torch.float32, device=x.device)
+    if nh:
+        err = kernels.lib().gsjax_home_gather_forward(
+            x.data_ptr(), tail_x.data_ptr(), perm.data_ptr(), n, f, nh, out.data_ptr(),
+            kernels.stream_ptr(x))
+        kernels.check(err, "home_gather")
+        kernels.LAUNCHES["home_gather_fwd"] += 1
+    return out
+
+
+def launch_reduce_home_rows(d, inv, inv_tail, seg_base):
+    """Kernel Q' (csrc/home_gather.cu): reduce_home_rows(d, F, inv,
+    inv_tail, seg_base) with each copy segment summed from its own rows
+    in a fixed order (no cumsum, no atomics)."""
+    _kernel_rows("reduce_home_rows", {"d": d}, inv=inv, inv_tail=inv_tail, seg_base=seg_base)
+    n, f = inv.shape[0], inv_tail.shape[0]
+    if seg_base.shape[0] != n + 1:
+        raise ValueError(f"reduce_home_rows: seg_base has {seg_base.shape[0]} entries, not "
+                         f"N + 1 = {n + 1}")
+    dx = torch.empty((n, d.shape[1]), dtype=torch.float32, device=d.device)
+    if n:
+        err = kernels.lib().gsjax_home_gather_backward(
+            d.data_ptr(), inv.data_ptr(), inv_tail.data_ptr(), seg_base.data_ptr(), n, f,
+            d.shape[0], dx.data_ptr(), kernels.stream_ptr(d))
+        kernels.check(err, "reduce_home_rows")
+        kernels.LAUNCHES["home_gather_bwd"] += 1
+    return dx
+
+
 class _HomeGather(torch.autograd.Function):
+    """CPU tensors take the plain versions (cat + index; reduce_home_rows),
+    CUDA tensors the kernel pair Q, Q' (there is no fallback)."""
+
     @staticmethod
     def forward(ctx, x, tail_x, perm, inv, inv_tail, seg_base):
         ctx.save_for_backward(inv, inv_tail, seg_base)
         ctx.f = tail_x.shape[0]
-        return torch.cat([x, tail_x])[perm]
+        if x.device.type == "cpu":
+            return torch.cat([x, tail_x])[perm]
+        return launch_home_gather(x, tail_x, perm)
 
     @staticmethod
     @trace.spanned("layout_bwd")
     def backward(ctx, d):
         inv, inv_tail, seg_base = ctx.saved_tensors
-        dx = reduce_home_rows(d, ctx.f, inv, inv_tail, seg_base)
+        if d.device.type == "cpu":
+            dx = reduce_home_rows(d, ctx.f, inv, inv_tail, seg_base)
+        else:
+            dx = launch_reduce_home_rows(d.contiguous(), inv, inv_tail, seg_base)
         return dx, None, None, None, None, None
 
 
